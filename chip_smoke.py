@@ -13,20 +13,24 @@ distinct inputs per call.
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels; print the build time and the card's name and power
      limit;
-  2. hold each kernel (K1 match, K2 orientation, K3 descriptor) against its
-     plain PyTorch version on the main path's own inputs;
+  2. hold each kernel (K1 match in fp32 and bf16, K2 orientation, K3
+     descriptor) against its plain PyTorch version on the main path's own
+     inputs, and K1 and K3 against a second run of themselves (bit for
+     bit);
   3. the pair path: a scene and the same scene shifted by 5 px, through
      ``make_pair_pipeline``: > 100 matches, median dx = -5.00 +- 0.01;
   4. the batch path: ``detect_and_describe_batch`` on 16 images and one
      batched ``match_pair`` of 8 pairs, with the launch counts reset just
-     before and read just after (each kernel once), the batch equal to
-     single-image runs within 1e-5, and a 96x128 image on the card equal
-     to the CPU run within the repo's tolerances;
+     before and read just after (K1 fp32, K2 and K3 once each), then the
+     same 8 pairs through ``match_pair(precision="bf16")``, counted the same
+     way (K1 bf16 once); the batch equal to single-image runs within 1e-5,
+     and a 96x128 image on the card equal to the CPU run within the repo's
+     tolerances;
   5. times with CUDA events: ms per 8-pair chunk over 40 distinct chunks
      (about 2 s) after 3 warm-up chunks, keyframes/s, each stage, and each
      kernel beside its plain version, its bound (the bytes and operations
-     this run's keypoints need) and (K1) one library call computing the
-     same function.
+     this run's keypoints need, K1's on the tensor cores) and (K1) one
+     library call computing the same function.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when
@@ -52,6 +56,8 @@ MIN_BATCH_FEATURES = 100       # per bench image
 MIN_BATCH_MATCHES = 50         # per bench pair
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_PER_S = 495e12       # H100 SXM tensor cores, dense TF32
+PEAK_BF16_PER_S = 989e12       # H100 SXM tensor cores, dense bf16
 # fp32 operations that a window pixel which adds to the result needs (exp,
 # division, floor and the add into a bin count one each).  K2: offsets 2,
 # r^2 3, weight 3 (scale, exp, times magnitude), bin 4 (times 36, over
@@ -219,10 +225,11 @@ def window_work(planes, cfg, kp, image, valid, angle0=None, step=256):
     return need_mag, need_ang, ops, pixels
 
 
-def bound(nbytes, ops):
-    """Least ms for the work: bytes at the memory rate or fp32 operations
-    at the fp32 rate, the larger, and which of the two it is."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_PER_S
+def bound(nbytes, ops, ops_per_s=PEAK_FP32_PER_S):
+    """Least ms for the work: bytes at the memory rate or operations at
+    their rate (fp32 outside the tensor cores unless given), the larger,
+    and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -258,7 +265,7 @@ def main():
     smi = card_line()
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"[build] kernels built in {build_s:.1f} s on {card}")
-    for name in ("windows", "match"):
+    for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}.cu: {line.strip()}")
@@ -278,8 +285,10 @@ def main():
     angle0 = angles[:, 0].contiguous()
     dvalid = (fl["valid"] & avalid[:, 0]).contiguous()
     dk = kw.descriptors(planes, *kp, angle0, dvalid, cfg, image=image)
+    dk_again = kw.descriptors(planes, *kp, angle0, dvalid, cfg, image=image)
     dp = kw.descriptors_plain(planes, *kp, angle0, dvalid, cfg, image)
     torch.cuda.synchronize()
+    assert torch.equal(dk, dk_again), "k3 differs between two runs"
     errs = {}
     for key, got, want in (("k2", hk, hp), ("k3", dk, dp)):
         scale = want.abs().amax(dim=-1, keepdim=True).clamp(min=1.0)
@@ -299,11 +308,16 @@ def main():
         b_mat, b_norm = k1.prepare_descriptors(desc_b, bf16)
         b_norm = torch.where(bvalid, b_norm, torch.full_like(b_norm, k1.MASKVAL))
         k1_inputs[bf16] = (a_mat, b_mat, a_norm, b_norm)
-        g1, gi, g2 = k1.fused_match_topk_prepared(*k1_inputs[bf16])
+        got = k1.fused_match_topk_prepared(*k1_inputs[bf16])
+        again = k1.fused_match_topk_prepared(*k1_inputs[bf16])
         w1, wi, w2 = k1.fused_match_topk_plain(*k1_inputs[bf16])
         torch.cuda.synchronize()
+        g1, gi, g2 = got
+        key = "k1_bf16" if bf16 else "k1"
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), \
+            f"{key} differs between two runs"
+        errs[key] = max((g1 - w1).abs().max().item(), (g2 - w2).abs().max().item())
         if not bf16:
-            errs["k1"] = max((g1 - w1).abs().max().item(), (g2 - w2).abs().max().item())
             unique = (w2 - w1) > 1e-3
             bad_idx = int((gi != wi)[unique].sum())
             print(f"[kernels] k1 fp32: max abs err {errs['k1']:.3e}, index "
@@ -312,9 +326,10 @@ def main():
         else:
             clear = (w2 - w1) > 2e-2 * torch.maximum(w1.abs(), w2.abs())
             agree = (gi == wi)[clear].float().mean().item()
-            print(f"[kernels] k1 bf16: index agreement {agree:.5f} over "
-                  f"{int(clear.sum())} rows with gap > 2%")
+            print(f"[kernels] k1 bf16: max abs err {errs['k1_bf16']:.3e}, index "
+                  f"agreement {agree:.5f} over {int(clear.sum())} rows with gap > 2%")
             assert agree > 0.999, "k1 bf16 disagrees"
+    print("[kernels] k1 (fp32, bf16) and k3: a second run equals the first bit for bit")
 
     # -- 3. the pair path ---------------------------------------------------
     scene = make_scene(H, W, 0, 80, dev)
@@ -339,15 +354,27 @@ def main():
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[batch] launches in one 8-pair chunk: {launches}")
-    assert all(v == 1 for v in launches.values()), "a kernel did not run once"
+    assert launches == {k: int(k != "k1_match_top2_bf16") for k in launches}, \
+        "a kernel of the path did not run once"
+    halves = [Features(*[t[:CHUNK] for t in fbatch]),
+              Features(*[t[CHUNK:] for t in fbatch])]
+    _build.reset_launches()
+    mbf16 = nt.match_pair(*halves, precision="bf16", device=dev)
+    torch.cuda.synchronize()
+    bf16_launches = dict(_build.LAUNCHES)
+    print(f"[batch] launches in one bf16 match_pair of 8 pairs: {bf16_launches}")
+    assert bf16_launches == {k: int(k == "k1_match_top2_bf16") for k in bf16_launches}
+    launches["k1_match_top2_bf16"] = bf16_launches["k1_match_top2_bf16"]
     assert fbatch.desc.shape == (2 * CHUNK, cfg.max_features, 128)
     assert mbatch.indices.shape == (CHUNK, cfg.max_features)
     assert torch.isfinite(fbatch.desc).all() and torch.isfinite(fbatch.x).all()
     n_feat = fbatch.count().cpu().numpy()
     n_match = ((mbatch.indices >= 0) & fbatch.valid[:CHUNK]).sum(-1).cpu().numpy()
     print(f"[batch] features per image {n_feat.tolist()}")
-    print(f"[batch] matches per pair {n_match.tolist()}")
+    n_match_bf16 = ((mbf16.indices >= 0) & fbatch.valid[:CHUNK]).sum(-1).cpu().numpy()
+    print(f"[batch] matches per pair {n_match.tolist()} (bf16: {n_match_bf16.tolist()})")
     assert (n_feat > MIN_BATCH_FEATURES).all() and (n_match > MIN_BATCH_MATCHES).all()
+    assert (n_match_bf16 > MIN_BATCH_MATCHES).all()
     worst = 0.0
     for i in range(2 * CHUNK):
         one = nt.detect_and_describe(images[i], cfg, device=dev)
@@ -393,9 +420,7 @@ def main():
     stage_fns = {
         "front_end_ms": lambda: keypoints_and_planes(images, cfg),
         "describe_ms": lambda: describe_keypoints(mk, planes, cfg),
-        "match_ms": lambda: nt.match_pair(
-            Features(*[t[:CHUNK] for t in fbatch]),
-            Features(*[t[CHUNK:] for t in fbatch]), device=dev),
+        "match_ms": lambda: nt.match_pair(*halves, device=dev),
     }
     stage = {}
     for key, fn in stage_fns.items():
@@ -414,14 +439,17 @@ def main():
     k3_plain = cuda_ms(lambda: kw.descriptors_plain(
         planes, *kp, angle0, dvalid, cfg, image), 3)
     k1_plain = cuda_ms(lambda: k1.fused_match_topk_plain(*k1_inputs[False]), 3)
-    a_mat, b_mat, a_norm, b_norm = k1_inputs[False]
-    bt = b_mat.transpose(1, 2)
+    k1_bf16_plain = cuda_ms(lambda: k1.fused_match_topk_plain(*k1_inputs[True]), 3)
 
-    def k1_library():
-        d = torch.baddbmm(b_norm[:, None, :], a_mat, bt, alpha=-2.0)
+    def k1_library(a_mat, b_mat, a_norm, b_norm):
+        # cuBLAS baddbmm + topk; with bf16 operands the distances come out
+        # in bf16, the nearest one call gets to the same function.
+        d = torch.baddbmm(b_norm[:, None, :].to(a_mat.dtype), a_mat,
+                          b_mat.transpose(1, 2), alpha=-2.0)
         return torch.topk(d, 2, dim=-1, largest=False)
 
-    k1_lib = graph_ms(k1_library, reps)
+    k1_lib = graph_ms(lambda: k1_library(*k1_inputs[False]), reps)
+    k1_bf16_lib = graph_ms(lambda: k1_library(*k1_inputs[True]), reps)
 
     # Bounds from this run's inputs.  K2/K3 read only the needed pixels of
     # the planes; each slot's valid flag is read and its output written,
@@ -436,11 +464,16 @@ def main():
         nbytes = (4 * int(need_mag.sum()) + 4 * int(need_ang.sum()) + b * m
                   + (24 + 4 * (a0 is not None)) * n_k + out_w * 4 * b * m)
         bounds[key] = (*bound(nbytes, ops), nbytes, ops, pix)
-    p_, m_, d_ = a_mat.shape
-    k1_ops = 2 * p_ * m_ * b_mat.shape[1] * d_
-    k1_bytes = (a_mat.numel() + b_mat.numel()) * 4 + (a_norm.numel()
-                + b_norm.numel()) * 4 + 12 * p_ * m_
-    bounds["k1"] = (*bound(k1_bytes, k1_ops), k1_bytes, k1_ops, None)
+    # K1: fp32 mode's least work on the tensor cores is 3xTF32, three
+    # products at the TF32 rate; bf16 mode's is one at the bf16 rate.
+    for key, bf16, products, rate in (("k1", False, 3, PEAK_TF32_PER_S),
+                                      ("k1_bf16", True, 1, PEAK_BF16_PER_S)):
+        a_mat, b_mat, a_norm, b_norm = k1_inputs[bf16]
+        p_, m_, d_ = a_mat.shape
+        k1_ops = products * 2 * p_ * m_ * b_mat.shape[1] * d_
+        k1_bytes = ((a_mat.numel() + b_mat.numel()) * a_mat.element_size()
+                    + (a_norm.numel() + b_norm.numel()) * 4 + 12 * p_ * m_)
+        bounds[key] = (*bound(k1_bytes, k1_ops, rate), k1_bytes, k1_ops, None)
 
     print(f"[time] {card}")
     print(f"[time] 8-pair chunk (16 x 640x480 detect+describe, 8 matches), "
@@ -451,13 +484,14 @@ def main():
           f"{max(chunk_times):.3f} ms")
     print(f"[time] stages of one chunk: " + ", ".join(
         f"{k} {v:.3f}" for k, v in stage.items()))
-    for key, ms, plain, lib in (("k1", k1_ms, k1_plain, k1_lib), ("k2", k2_ms, k2_plain, None),
+    for key, ms, plain, lib in (("k1", k1_ms, k1_plain, k1_lib),
+                                ("k1_bf16", k1_bf16_ms, k1_bf16_plain, k1_bf16_lib),
+                                ("k2", k2_ms, k2_plain, None),
                                 ("k3", k3_ms, k3_plain, None)):
         bd = bounds[key]
         print(f"[time] {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
               f"{bd[0]:.4f} ms ({bd[1]}: {bd[2]} bytes, {bd[3]} ops)"
               + (f", library {lib:.4f} ms" if lib is not None else ""))
-    print(f"[time] k1 bf16: kernel {k1_bf16_ms:.4f} ms")
 
     def row(key, name, source, replaces, ms, plain, lib):
         return {"name": name, "route": "cuda", "source": source,
@@ -469,9 +503,12 @@ def main():
     kernels = [
         row("k1", "k1_match_top2", "niftymatch_torch/csrc/match.cu",
             "niftymatch_tpu/pallas/match.py:54", k1_ms, k1_plain, k1_lib),
+        row("k1_bf16", "k1_match_top2_bf16", "niftymatch_torch/csrc/match.cu",
+            "niftymatch_tpu/pallas/match.py:54", k1_bf16_ms, k1_bf16_plain,
+            k1_bf16_lib),
         row("k2", "k2_orientation_hist", "niftymatch_torch/csrc/windows.cu",
             "niftymatch_tpu/pallas/windows.py:161", k2_ms, k2_plain, None),
-        row("k3", "k3_descriptor", "niftymatch_torch/csrc/windows.cu",
+        row("k3", "k3_descriptor", "niftymatch_torch/csrc/descriptors.cu",
             "niftymatch_tpu/pallas/windows.py:363", k3_ms, k3_plain, None),
     ]
     print(json.dumps({"e2e": {"chunk_ms": chunk_ms, "keyframes_per_s": kf_s,

@@ -3,10 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``build/niftymatch_torch/`` at the repository root, named by a hash of the
-source and flags, so an edited source is rebuilt on its next use.  The
-libraries are loaded with ``ctypes``; every C entry point returns
-``cudaGetLastError()`` after its launch and ``check`` raises on anything
-but 0.
+source, the ``csrc/`` headers it includes and the flags, so an edited
+source or header is rebuilt on its next use.  A library named
+``<source>_timing`` is the same source built with ``NM_TIMING_VARIANTS``,
+which adds its kernels' timing variants (parts of the work left out) for
+``tools/k1_variants.py`` and ``tools/k3_variants.py``; the package's own
+libraries do not hold them.  The libraries are loaded with ``ctypes``; every C
+entry point returns ``cudaGetLastError()`` after its launch and ``check``
+raises on anything but 0.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.  ``build_all`` starts one ``nvcc`` per source
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,12 +41,18 @@ BUILD_DIR = PKG_DIR.parent / "build" / "niftymatch_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"]
-# windows.cu keeps every multiply and add separately rounded (no FMA
-# contraction), so the kernels reproduce their plain PyTorch versions'
-# fp32 arithmetic op for op; see the note at the top of the source.
-EXTRA_FLAGS = {"windows": ["-fmad=false"], "match": []}
+# windows.cu (K2) keeps every multiply and add separately rounded (no FMA
+# contraction): it floors quotients into bins, so it reproduces its plain
+# PyTorch version's fp32 arithmetic op for op.  descriptors.cu (K3) and
+# match.cu (K1) compute continuous functions and let nvcc contract.  See the
+# note at the top of each source.
+EXTRA_FLAGS = {"windows": ["-fmad=false"], "descriptors": [], "match": []}
+SOURCES = tuple(EXTRA_FLAGS)
+TIMING = "_timing"
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
-LAUNCHES = {"k1_match_top2": 0, "k2_orientation_hist": 0, "k3_descriptor": 0}
+LAUNCHES = {"k1_match_top2": 0, "k1_match_top2_bf16": 0,
+            "k2_orientation_hist": 0, "k3_descriptor": 0}
 
 _LIBS: dict = {}
 
@@ -62,13 +73,21 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> Path:
+    return CSRC_DIR / f"{name.removesuffix(TIMING)}.cu"
+
+
 def _flags(name: str):
-    return ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS[name]
+    source = name.removesuffix(TIMING)
+    timing = ["-DNM_TIMING_VARIANTS"] if source != name else []
+    return ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS[source] + timing
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    text = _source(name).read_bytes()
+    h = hashlib.sha256(text)
+    for header in sorted(set(_INCLUDE.findall(text))):
+        h.update((CSRC_DIR / header.decode()).read_bytes())
     h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -79,7 +98,7 @@ def _start_build(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
     log = open(target.with_suffix(".log"), "w")
-    cmd = [_nvcc()] + _flags(name) + ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [_nvcc()] + _flags(name) + ["-o", str(tmp), str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     log.close()
     return proc, target, tmp
@@ -93,7 +112,7 @@ def _finish_build(name: str, proc, target: Path, tmp: Path) -> None:
     os.replace(tmp, target)
 
 
-def build_all(names=("windows", "match")) -> float:
+def build_all(names=SOURCES) -> float:
     """Build every library not yet built, all ``nvcc`` runs at once;
     returns the seconds spent."""
     t0 = time.perf_counter()

@@ -78,18 +78,20 @@ def fused_match_topk_prepared(a_mat, b_mat, a_norm, b_norm):
     _build.require_cuda("b_norm", b_norm, torch.float32, (pairs, n))
     if d != 128:
         raise ValueError(f"the K1 kernel takes 128-D descriptors, got {d}")
+    if a_mat.data_ptr() % 16 or b_mat.data_ptr() % 16:
+        raise ValueError("the K1 kernel copies 16-byte aligned rows")
     kw = dict(device=a_mat.device)
     min1 = torch.empty((pairs, m), dtype=torch.float32, **kw)
     idx1 = torch.empty((pairs, m), dtype=torch.int32, **kw)
     min2 = torch.empty((pairs, m), dtype=torch.float32, **kw)
     lib = _build.load("match", _SIGNATURES)
-    fn = (lib.nm_match_top2_bf16 if a_mat.dtype == torch.bfloat16
-          else lib.nm_match_top2_f32)
+    bf16 = a_mat.dtype == torch.bfloat16
+    fn = lib.nm_match_top2_bf16 if bf16 else lib.nm_match_top2_f32
     rc = fn(a_mat.data_ptr(), b_mat.data_ptr(), a_norm.data_ptr(),
             b_norm.data_ptr(), pairs, m, n, d, min1.data_ptr(),
             idx1.data_ptr(), min2.data_ptr(), _build.stream_ptr(a_mat))
     _build.check(rc, "K1 match top-2")
-    _build.LAUNCHES["k1_match_top2"] += 1
+    _build.LAUNCHES["k1_match_top2_bf16" if bf16 else "k1_match_top2"] += 1
     if not batched:
         return min1[0], idx1[0], min2[0]
     return min1, idx1, min2

@@ -10,13 +10,14 @@ batched pipeline puts all B images' planes and keypoints into one launch of
 each kernel.
 
 Each wrapper takes CPU tensors to its plain PyTorch version and CUDA
-tensors to its CUDA kernel (``csrc/windows.cu``); there is no fallback from
-one to the other.  As in the Pallas wrappers, the integer window centre
-is clipped before the sub-pixel offsets are taken from it; the clip is to
-the slab's data area (the octave-0 size), which the JAX merged path also
-uses and which keeps every window read inside its slab.  The Pallas
-wrappers clip a few pixels looser; the two differ only for a keypoint that
-lies outside its octave's image, which detection never produces.
+tensors to its CUDA kernel (K2 ``csrc/windows.cu``, K3
+``csrc/descriptors.cu``); there is no fallback from one to the other.  As
+in the Pallas wrappers, the integer window centre is clipped before the
+sub-pixel offsets are taken from it; the clip is to the slab's data area
+(the octave-0 size), which the JAX merged path also uses and which keeps
+every window read inside its slab.  The Pallas wrappers clip a few pixels
+looser; the two differ only for a keypoint that lies outside its octave's
+image, which detection never produces.
 """
 
 from __future__ import annotations
@@ -38,9 +39,11 @@ from ..ops.patches import gather_windows
 from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_K2_SIGNATURES = {
     "nm_orientation_hists": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P, _P, _P, _I, _I, ctypes.c_float, _P, _P],
+}
+_K3_SIGNATURES = {
     "nm_descriptors": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                        _P, _P, _P, _I, ctypes.c_float, _P, _P],
 }
@@ -172,7 +175,7 @@ def orientation_hists(planes: GradPlanes, x, y, sigma, octave, level, valid,
     if config.max_orientation_radius > planes.radius:
         raise ValueError("orientation radius exceeds the planes' padding")
     out = torch.empty((m, NUM_ORI_BINS), dtype=torch.float32, device=x.device)
-    lib = _build.load("windows", _SIGNATURES)
+    lib = _build.load("windows", _K2_SIGNATURES)
     rc = lib.nm_orientation_hists(
         *_geometry_args(planes), x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
         octave.data_ptr(), level.data_ptr(), image.data_ptr(),
@@ -228,7 +231,7 @@ def descriptors(planes: GradPlanes, x, y, sigma, octave, level, angle0, valid,
                                    level=level, image=image, angle0=angle0,
                                    valid=valid))
     out = torch.empty((m, SIFT_VECTOR_SIZE), dtype=torch.float32, device=x.device)
-    lib = _build.load("windows", _SIGNATURES)
+    lib = _build.load("descriptors", _K3_SIGNATURES)
     rc = lib.nm_descriptors(
         *_geometry_args(planes), x.data_ptr(), y.data_ptr(), sigma.data_ptr(),
         octave.data_ptr(), level.data_ptr(), image.data_ptr(),
