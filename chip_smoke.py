@@ -15,7 +15,7 @@ Phases (any failed check raises, so the script exits non-zero):
      limit;
   2. hold each kernel (K1 match in fp32 and bf16, K2 orientation, K3
      descriptor) against its plain PyTorch version on the main path's own
-     inputs, and K1 and K3 against a second run of themselves (bit for
+     inputs, and K1, K2 and K3 against a second run of themselves (bit for
      bit);
   3. the pair path: a scene and the same scene shifted by 5 px, through
      ``make_pair_pipeline``: > 100 matches, median dx = -5.00 +- 0.01;
@@ -279,6 +279,7 @@ def main():
     kp = [fl[k] for k in ("x", "y", "sigma", "octave", "level")]
     n_valid = int(fl["valid"].sum())
     hk = kw.orientation_hists(planes, *kp, fl["valid"], cfg, image=image)
+    hk_again = kw.orientation_hists(planes, *kp, fl["valid"], cfg, image=image)
     hp = kw.orientation_hists_plain(planes, *kp, fl["valid"], cfg, image)
     angles, avalid = kw.compute_orientations_merged_kernel(
         planes, *kp, fl["valid"], cfg, image=image)
@@ -288,6 +289,7 @@ def main():
     dk_again = kw.descriptors(planes, *kp, angle0, dvalid, cfg, image=image)
     dp = kw.descriptors_plain(planes, *kp, angle0, dvalid, cfg, image)
     torch.cuda.synchronize()
+    assert torch.equal(hk, hk_again), "k2 differs between two runs"
     assert torch.equal(dk, dk_again), "k3 differs between two runs"
     errs = {}
     for key, got, want in (("k2", hk, hp), ("k3", dk, dp)):
@@ -329,7 +331,8 @@ def main():
             print(f"[kernels] k1 bf16: max abs err {errs['k1_bf16']:.3e}, index "
                   f"agreement {agree:.5f} over {int(clear.sum())} rows with gap > 2%")
             assert agree > 0.999, "k1 bf16 disagrees"
-    print("[kernels] k1 (fp32, bf16) and k3: a second run equals the first bit for bit")
+    print("[kernels] k1 (fp32, bf16), k2 and k3: a second run equals the first "
+          "bit for bit")
 
     # -- 3. the pair path ---------------------------------------------------
     scene = make_scene(H, W, 0, 80, dev)

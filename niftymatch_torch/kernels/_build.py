@@ -7,10 +7,12 @@ source, the ``csrc/`` headers it includes and the flags, so an edited
 source or header is rebuilt on its next use.  A library named
 ``<source>_timing`` is the same source built with ``NM_TIMING_VARIANTS``,
 which adds its kernels' timing variants (parts of the work left out) for
-``tools/k1_variants.py`` and ``tools/k3_variants.py``; the package's own
-libraries do not hold them.  The libraries are loaded with ``ctypes``; every C
-entry point returns ``cudaGetLastError()`` after its launch and ``check``
-raises on anything but 0.
+``tools/k1_variants.py``, ``tools/k2_variants.py`` and
+``tools/k3_variants.py``, and in ``windows_timing`` a check of K2's
+division against CUDA's ``/``; the package's own libraries do not hold
+them.  The libraries are loaded with ``ctypes``; every C entry point
+returns ``cudaGetLastError()`` after its launch and ``check`` raises on
+anything but 0.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.  ``build_all`` starts one ``nvcc`` per source

@@ -6,13 +6,16 @@ not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K2/K3 raw histograms within 1e-4 times each row's largest
-bin (K2 adds into per-thread histogram columns summed in thread order, K3
-into fixed-point bins with integer atomics, FMA-contracted; both add in
-another order than the plain version's matrix product); K1 fp32 min1/min2
-within 2e-3 with exact indices where the top-2 gap exceeds 1e-3; K1 bf16
-index agreement above 0.999 where the gap exceeds 2%
-(``tests/test_pallas_match.py:107-129``).  K1 and K3 give the same bits on
-every run.
+bin (K2 adds each lane's pixels into that lane's own column of a 36 x 32
+histogram in shared memory and sums each bin over the columns in a fixed
+order, with the per-pixel arithmetic of the plain version and no FMA
+contraction; K3 adds into fixed-point bins with integer atomics,
+FMA-contracted; both add in another order than the plain version's matrix
+product); K1 fp32 min1/min2 within 2e-3 with exact indices where the top-2
+gap exceeds 1e-3; K1 bf16 index agreement above 0.999 where the gap
+exceeds 2% (``tests/test_pallas_match.py:107-129``).  K1, K2 and K3 give
+the same bits on every run, and K2 the same bits for a keypoint in a batch
+as for the keypoint's image alone.
 """
 
 import dataclasses
@@ -212,6 +215,132 @@ def test_k3_all_invalid_gives_zeros():
     assert got.shape == (image.shape[0], 128) and not got.any()
 
 
+# --- K2 at the edges of its inputs -----------------------------------------
+
+
+def _k2_bin_boundary_planes(dev, radius=12):
+    """One slab of unit magnitudes whose angles cycle through the bin edges
+    float32(k 2pi / 36), their float32 neighbours on both sides and the
+    float just below 2pi, so that one ulp in the bin's quotient would move
+    a pixel."""
+    edges = (np.arange(36) * (2 * np.pi / 36)).astype(np.float32)
+    vals = np.concatenate([edges, np.nextafter(edges, np.float32(-1.0)),
+                           np.nextafter(edges, np.float32(7.0)),
+                           np.float32([TWO_PI_BELOW])]).astype(np.float32)
+    hp, wp = H + 2 * radius, W + 2 * radius
+    yy, xx = np.mgrid[0:H, 0:W]
+    ang = np.zeros((1, hp, wp), np.float32)
+    mag = np.zeros((1, hp, wp), np.float32)
+    ang[0, radius:radius + H, radius:radius + W] = vals[(7 * yy + xx) % vals.size]
+    mag[0, radius:radius + H, radius:radius + W] = 1.0
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return tw.GradPlanes(t(mag), t(ang), radius, 1, 1, 1)
+
+
+def _k2_bin_boundary_slots(dev, sigmas, n=48):
+    """``n`` keypoints at seeded sub-pixel positions over the whole image,
+    borders included, the sigmas taken in turn (octave 0, level 0)."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0.0, W - 1.0, n).astype(np.float32)
+    y = rng.uniform(0.0, H - 1.0, n).astype(np.float32)
+    x[:4], y[:4] = [0.0, W - 1.0, 0.3, W - 1.2], [0.0, H - 1.0, H - 1.4, 0.2]
+    sigma = np.resize(np.float32(sigmas), n)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    return [f32(x), f32(y), f32(sigma), zeros, zeros], zeros
+
+
+# sigma at octave 0: w_r = 1, 4, exactly 10 (floor(10.35)), clipped to 10.
+K2_SIGMAS = [0.2, 1.0, 2.3, 8.0]
+
+
+@pytest.mark.parametrize("case", ["edges", "sigmas", "flipped", "bin_boundaries"])
+def test_k2_edge_cases_match_plain(case):
+    """Keypoints on the last row, the last column and the corner of every
+    octave; windows of radius 1, 4, exactly 10 and clipped to 10; the
+    flipped Gaussian sign, whose weights grow outwards; and hand-made planes
+    whose angles sit on and beside every bin edge, which hold the per-pixel
+    arithmetic bit for bit and not only the sums."""
+    dev = cuda_device()
+    cfg = CFG
+    if case == "bin_boundaries":
+        planes = _k2_bin_boundary_planes(dev)
+        kp, image = _k2_bin_boundary_slots(dev, K2_SIGMAS)
+    else:
+        _, planes, _ = _front(dev)
+        sigmas, edges = K2_SIGMAS, 3
+        if case == "edges":
+            sigmas = [2.0]
+        elif case == "sigmas":
+            edges = 0
+        else:
+            cfg = dataclasses.replace(
+                CFG, compat=nt.CompatFlags(flipped_gaussian_sign=True))
+        kp, _, image = _k3_slots(planes, sigmas, [0.0], edges)
+    valid = torch.ones_like(kp[0], dtype=torch.bool)
+    _build.reset_launches()
+    got = tw.orientation_hists(planes, *kp, valid, cfg, image=image)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k2_orientation_hist"] == 1
+    want = tw.orientation_hists_plain(planes, *kp, valid, cfg, image)
+    assert (np_(want).max(axis=-1) > 0).mean() > 0.5
+    assert_hist_close(got, want, err_msg=f"K2 {case}")
+
+
+def test_k2_division_matches_ieee():
+    """K2's branch-free division equals CUDA's ``/`` bit for bit: every
+    float dividend in [2^-60, 2^60] of either sign over 2 pi (the bin's
+    divisor) and over 2 sigma_w^2 for sigma_w = 3.45 (a weight's), and
+    2^28 random pairs."""
+    dev = cuda_device()
+    import ctypes
+
+    _build.build_all(("windows_timing",))
+    lib = _build.load("windows_timing", {"nm_quotient_check": [
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]})
+    lo = int(np.float32(2.0 ** -60).view(np.uint32))
+    hi = int(np.float32(2.0 ** 60).view(np.uint32))
+    for d, first, count, mode in ((float(np.float32(2 * np.pi)), lo, hi - lo + 1, 0),
+                                  (float(np.float32(23.805)), lo, hi - lo + 1, 0),
+                                  (1.0, 7, 1 << 28, 1)):
+        out = torch.zeros(2, dtype=torch.int64, device=dev)
+        rc = lib.nm_quotient_check(d, first, count, mode, out.data_ptr(),
+                                   out[1:].data_ptr(), _build.stream_ptr(out))
+        _build.check(rc, "division check")
+        bad, checked = out.tolist()
+        assert checked >= min(count, 1 << 28) and bad == 0, (d, bad, checked)
+
+
+def test_k2_all_invalid_gives_zeros():
+    dev = cuda_device()
+    fl, planes, image = _front(dev)
+    kp = [fl[k] for k in KP]
+    got = tw.orientation_hists(planes, *kp, torch.zeros_like(fl["valid"]), CFG,
+                               image=image)
+    torch.cuda.synchronize()
+    assert got.shape == (image.shape[0], 36) and not got.any()
+
+
+def test_k2_batch_equals_single_images():
+    """Each image's keypoints against its own slabs alone give the same
+    bits as in the 3-image launch."""
+    dev = cuda_device()
+    fl, planes, image = _front(dev)
+    batch = tw.orientation_hists(planes, *[fl[k] for k in KP], fl["valid"], CFG,
+                                 image=image)
+    per = planes.num_octaves * planes.num_levels
+    m = CFG.max_features
+    for i in range(3):
+        one = planes._replace(mag=planes.mag[i * per:(i + 1) * per].contiguous(),
+                              ang=planes.ang[i * per:(i + 1) * per].contiguous(),
+                              num_images=1)
+        sl = slice(i * m, (i + 1) * m)
+        alone = tw.orientation_hists(one, *[fl[k][sl].contiguous() for k in KP],
+                                     fl["valid"][sl].contiguous(), CFG)
+        assert torch.equal(batch[sl], alone), f"image {i}"
+
+
 # --- K1 at the main path's shape, on ties and on rows with no valid B ------
 
 
@@ -272,10 +401,13 @@ def test_k1_duplicates_take_lowest_column_and_empty_rows(bf16):
               [t[:1] for t in tk.fused_match_topk_plain(*ops)], bf16)
 
 
-def test_k1_k3_rerun_bit_identical():
+def test_k1_k2_k3_rerun_bit_identical():
     dev = cuda_device()
     fl, planes, image = _front(dev)
     kp = [fl[k] for k in KP]
+    h1 = tw.orientation_hists(planes, *kp, fl["valid"], CFG, image=image)
+    h2 = tw.orientation_hists(planes, *kp, fl["valid"], CFG, image=image)
+    assert torch.equal(h1, h2)
     angle0 = torch.linspace(0.0, 6.2, image.shape[0], device=dev)
     d1 = tw.descriptors(planes, *kp, angle0, fl["valid"], CFG, image=image)
     d2 = tw.descriptors(planes, *kp, angle0, fl["valid"], CFG, image=image)
