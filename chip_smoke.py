@@ -30,11 +30,27 @@ Phases (any failed check raises, so the script exits non-zero):
      (about 2 s) after 3 warm-up chunks, keyframes/s, each stage, and each
      kernel beside its plain version, its bound (the bytes and operations
      this run's keypoints need, K1's on the tensor cores) and (K1) one
-     library call computing the same function.
+     library call computing the same function;
+  6. geometry and mosaic on the card: phase 3's pair through
+     ``align_points`` -> ``ransac(model="homography")`` at the defaults
+     (2048 iterations, threshold 9, 2048 slots), H within 1 px of the
+     5-px shift at the corners (0.05 px at a 0.1-px threshold), and the
+     same call with one injected draw on the card and on the CPU; every
+     RANSAC model on 2048 synthetic correspondences (a third outliers),
+     with its kernel launches; ``MosaicBuilder`` at its defaults
+     over 8 frames of 640x480 cut from a 720x1120 scene, one rotated and
+     scaled through ``warp_perspective`` (every frame registers, the chain
+     within 1 px at the corners, the canvas matches the scene, one
+     ``add_frame`` launches K1 twice and K2 and K3 once); undistortion on
+     the card against the CPU; the per-octave oracle against the merged
+     path; then ms per ``ransac`` call for each model, ms per ``add_frame``
+     and its stages, and the kernel launches of one homography ``ransac``
+     and one ``add_frame`` from ``torch.profiler``.
 
-Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
-line ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when
-CUDA is absent or the package is not beside the script.
+Prints a ``{"geometry": ...}`` line, a ``{"kernels": [...]}`` line, the
+nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero with no result when CUDA is absent or the package is not
+beside the script.
 """
 
 import json
@@ -231,6 +247,300 @@ def bound(nbytes, ops, ops_per_s=PEAK_FP32_PER_S):
     and which of the two it is."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# -- phase 6: geometry and mosaic ------------------------------------------
+
+N_CORR = 2048                  # correspondences, as the 2048 feature slots
+MODELS = ("translation", "similarity", "homography", "fundamental",
+          "essential", "essential5")
+MOSAIC_FRAMES = 8
+MOSAIC_STEP = (24, 56)         # (dy, dx) between frames
+ROTATED_FRAME = 3              # rendered through warp_perspective
+ROT_DEG, ROT_SCALE = 3.0, 1.05
+
+
+def translation(tx, ty):
+    return np.array([[1, 0, tx], [0, 1, ty], [0, 0, 1]], np.float64)
+
+
+def similarity_about(cx, cy, deg, scale):
+    c, s = scale * math.cos(math.radians(deg)), scale * math.sin(math.radians(deg))
+    rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    return translation(cx, cy) @ rot @ translation(-cx, -cy)
+
+
+def corners_of(hom, h=None, w=None):
+    """Where a 3x3 transform sends the four corners of an h x w frame
+    (640x480 by default)."""
+    h, w = h or H, w or W
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [0, h - 1, 1], [w - 1, h - 1, 1]], float).T
+    p = np.asarray(hom, np.float64) @ c
+    return (p[:2] / p[2]).T
+
+
+def synthetic_correspondences(model, seed):
+    """N_CORR correspondences of a known model, a third of them outliers,
+    made with numpy: pixel coordinates in a 640x480 frame for the 2-D
+    models (0.3 px noise), normalised camera coordinates of points seen
+    from two poses for the epipolar ones (1e-4 noise).  Returns src, dst,
+    the true-inlier mask, the truth (3x3) and the inlier threshold."""
+    rng = np.random.default_rng(seed)
+    n, out = N_CORR, N_CORR // 3
+    truth = np.zeros(n, bool)
+    truth[out:] = True
+    if model in ("translation", "similarity", "homography"):
+        hom = {"translation": translation(7.0, -2.0),
+               "similarity": similarity_about(320, 240, ROT_DEG, ROT_SCALE)
+               @ translation(12.0, -9.0),
+               "homography": np.array([[1.02, 0.03, 5.0], [-0.02, 0.98, -4.0],
+                                       [2e-5, -1e-5, 1.0]])}[model]
+        src = rng.uniform(0, (W, H), size=(n, 2))
+        p = np.c_[src, np.ones(n)] @ hom.T
+        dst = p[:, :2] / p[:, 2:] + rng.normal(0, 0.3, (n, 2))
+        dst[:out] = rng.uniform(0, (W, H), size=(out, 2))
+        return src.astype(np.float32), dst.astype(np.float32), truth, hom, 9.0
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    rot = np.eye(3) + math.sin(0.2) * k + (1 - math.cos(0.2)) * (k @ k)
+    t = rng.standard_normal(3)
+    t /= np.linalg.norm(t)
+    pts = rng.uniform(-1, 1, size=(n, 3))
+    pts[:, 2] += 4.0
+    x1 = pts[:, :2] / pts[:, 2:] + rng.normal(0, 1e-4, (n, 2))
+    p2 = pts @ rot.T + t
+    x2 = p2[:, :2] / p2[:, 2:] + rng.normal(0, 1e-4, (n, 2))
+    x2[:out] = rng.uniform(-0.5, 0.5, size=(out, 2))
+    ess = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]]) @ rot
+    return x1.astype(np.float32), x2.astype(np.float32), truth, ess, 1e-5
+
+
+def profiled_launches(fn, top=4):
+    """Device events of one call of ``fn`` under torch.profiler: kernels,
+    copies and sets apart, the device's busy ms (summed event time) and
+    the ``top`` kernel names by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
+    by_name = {}
+    for e in events:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"kernels": len(events) - copies, "copies_and_sets": copies,
+            "device_ms": sum(t for _, t in by_name.values()),
+            "top": [[name[:60], n, t] for name, (n, t) in heavy]}
+
+
+def median_ms(fn, reps=10, warmup=2):
+    """Median ms on the card's clock of ``reps`` calls after ``warmup``."""
+    return float(np.median(per_call_ms(lambda _: fn(), range(warmup + reps))[warmup:]))
+
+
+def quick_start(nt, fa, fb, mres, dev):
+    """The README quick-start on phase 3's pair, and the same call with one
+    injected draw on the card and on the CPU."""
+    import torch
+
+    from niftymatch_torch.geometry.transforms import transfer_sq_error
+
+    cfg = nt.RansacConfig()
+    src, dst, mask = nt.align_points(fa.x, fa.y, fb.x, fb.y, mres.indices, fa.valid,
+                                     device=dev)
+    shift = corners_of(translation(-5, -5))
+    res = nt.ransac(src, dst, mask, cfg, model="homography", device=dev)
+    ok, n_inl = bool(res.success), int(res.num_inliers)
+    err = np.abs(corners_of(res.transform.cpu()) - shift).max()
+    # A sub-pixel threshold keeps only the matches that follow the shift:
+    # the default 3 px also takes in matches 0.1-3 px off it (the blob
+    # scene is self-similar), which pull the least-squares refit by ~0.5 px.
+    fine = nt.ransac(src, dst, mask, nt.RansacConfig(inlier_threshold=0.01),
+                     model="homography", device=dev)
+    err_fine = np.abs(corners_of(fine.transform.cpu()) - shift).max()
+    print(f"[geometry] quick-start: {int(mask.sum())} matches; defaults: {n_inl} inliers, "
+          f"corners {err:.4f} px from the (-5, -5) shift; threshold 0.1 px: "
+          f"{int(fine.num_inliers)} inliers, corners {err_fine:.4f} px")
+    assert ok and n_inl > 100 and err <= 1.0, "quick-start homography is wrong"
+    assert bool(fine.success) and int(fine.num_inliers) > 100 and err_fine <= 0.05, \
+        "quick-start homography at a sub-pixel threshold is wrong"
+
+    scores = np.random.default_rng(5).gumbel(size=(cfg.iterations, src.shape[0]))
+    scores = torch.from_numpy(scores.astype(np.float32))
+    rg = nt.ransac(src, dst, mask, cfg, scores=scores, device=dev)
+    rc = nt.ransac(src.cpu(), dst.cpu(), mask.cpu(), cfg, scores=scores, device="cpu")
+    dc = np.abs(corners_of(rg.transform.cpu()) - corners_of(rc.transform)).max()
+    tau = cfg.inlier_threshold
+    e_cpu = transfer_sq_error(rc.transform, src.cpu(), dst.cpu()).numpy()
+    differ = rg.inliers.cpu().numpy() != rc.inliers.numpy()
+    edge = np.abs(e_cpu[differ] - tau).max() if differ.any() else 0.0
+    print(f"[geometry] injected draw, card against CPU: corners {dc:.2e} px apart, "
+          f"{int(differ.sum())} inlier flags differ (|err - tau| <= {edge:.2e})")
+    assert dc <= 1e-3 and edge <= 1e-4 * tau, "card and CPU RANSAC disagree"
+    launches = profiled_launches(
+        lambda: nt.ransac(src, dst, mask, cfg, model="homography", device=dev))
+    print(f"[geometry] one homography ransac call (2048 x 2048): {launches} device events")
+    return {"quick_start_inliers": n_inl, "quick_start_corner_err_px": float(err),
+            "quick_start_subpixel_inliers": int(fine.num_inliers),
+            "quick_start_subpixel_corner_err_px": float(err_fine),
+            "card_vs_cpu_corner_px": float(dc), "card_vs_cpu_flag_diffs": int(differ.sum()),
+            "ransac_homography_launches": launches}
+
+
+def every_model(nt, dev):
+    """Each RANSAC model once on synthetic correspondences, then its time."""
+    import torch
+
+    from niftymatch_torch.geometry.transforms import sampson_sq_error
+
+    out = {}
+    for i, model in enumerate(MODELS):
+        src, dst, truth, true_t, tau = synthetic_correspondences(model, 100 + i)
+        cfg = nt.RansacConfig(inlier_threshold=tau)
+        mask = np.ones(N_CORR, bool)
+
+        def call():
+            return nt.ransac(src, dst, mask, cfg, model=model, device=dev)
+
+        res = call()
+        t = res.transform.cpu().numpy()
+        inl = res.inliers.cpu().numpy()
+        if model in ("translation", "similarity", "homography"):
+            err = float(np.abs(corners_of(t) - corners_of(true_t)).max())
+            msg = f"corners {err:.3f} px from the truth"
+            good = err < 0.5
+        else:
+            err = float(sampson_sq_error(torch.from_numpy(t), torch.from_numpy(src),
+                                         torch.from_numpy(dst)).numpy()[truth].max())
+            share = float(inl[truth].mean())
+            msg = f"Sampson error of the true inliers <= {err:.2e}, {share:.4f} flagged"
+            good = err < 1e-5 and share >= 0.95
+        ms = median_ms(call)
+        prof = profiled_launches(call)
+        print(f"[geometry] ransac {model}: {int(res.num_inliers)} inliers, {msg}; "
+              f"{ms:.3f} ms a call, {prof['kernels']} kernels, {prof['device_ms']:.3f} "
+              f"ms of device time")
+        assert bool(res.success) and good, f"ransac {model} missed its model"
+        out[model] = {"ms": ms, "num_inliers": int(res.num_inliers), "err": err,
+                      "launches": prof}
+    return out
+
+
+def mosaic_phase(nt, dev):
+    """``MosaicBuilder`` at its defaults over 8 frames of a rendered scene."""
+    import torch
+
+    from niftymatch_torch.kernels import _build
+    from niftymatch_torch.mosaic import MosaicBuilder, MosaicConfig
+    from niftymatch_torch.ops.warp import remap, undistort_map, warp_perspective
+
+    span_y = H + MOSAIC_STEP[0] * (MOSAIC_FRAMES - 1) + 72      # 720
+    span_x = W + MOSAIC_STEP[1] * (MOSAIC_FRAMES - 1) + 88      # 1120
+    scene = make_scene(span_y - 16, span_x - 16, 21, 300, dev)
+    truths, frames = [], []
+    for k in range(MOSAIC_FRAMES):
+        dy, dx = MOSAIC_STEP[0] * k, MOSAIC_STEP[1] * k
+        g = translation(dx, dy)                                # frame -> scene
+        if k == ROTATED_FRAME:
+            g = g @ similarity_about((W - 1) / 2, (H - 1) / 2, ROT_DEG, ROT_SCALE)
+            f = warp_perspective(scene, torch.tensor(g, dtype=torch.float32, device=dev),
+                                 (H, W))
+        else:
+            f = scene[dy:dy + H, dx:dx + W]
+        truths.append(g)
+        frames.append(f.contiguous())
+
+    mcfg = MosaicConfig(width=W, height=H)
+    mb = MosaicBuilder(mcfg, device=dev)
+    anchor = translation((mcfg.canvas_width - W) / 2.0, (mcfg.canvas_height - H) / 2.0)
+    infos, frame_ms = [], []
+    for k, f in enumerate(frames):
+        torch.cuda.synchronize()
+        if k == 5:
+            _build.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        infos.append(mb.add_frame(f))
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        if k == 5:
+            launches = dict(_build.LAUNCHES)
+    print(f"[mosaic] inliers per frame {[i['num_inliers'] for i in infos]}; launches in "
+          f"one add_frame: {launches}")
+    assert all(i["registered"] for i in infos), "a mosaic frame did not register"
+    assert launches == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
+                        "k2_orientation_hist": 1, "k3_descriptor": 1}, \
+        "add_frame did not launch K1 twice and K2 and K3 once"
+    chain_err = float(np.abs(corners_of(mb.frame_to_canvas())
+                             - corners_of(anchor @ np.linalg.inv(truths[0]) @ truths[-1])).max())
+    canvas = mb.result()
+    ys, xs = np.nonzero(mb.weights.cpu().numpy() > 0.2)
+    ref = scene.cpu().numpy()
+    ax, ay = int(anchor[0, 2]), int(anchor[1, 2])
+    diff = float(np.median(np.abs(canvas[ys, xs] - ref[ys - ay, xs - ax])))
+    print(f"[mosaic] {MOSAIC_FRAMES} frames registered; final chain {chain_err:.3f} px "
+          f"from the truth at the corners; median |canvas - scene| {diff:.3f} over "
+          f"{len(ys)} covered pixels")
+    assert chain_err < 1.0 and diff < 2.0, "mosaic is wrong"
+
+    cam = torch.tensor([500.0, 500.0, 319.5, 239.5])
+    dist = torch.tensor([-0.12, 0.03, 0.0])
+    mg = undistort_map(cam.to(dev), dist.to(dev), H, W)
+    mc = undistort_map(cam, dist, H, W)
+    ug = remap(frames[1], *mg).cpu()
+    uc = remap(frames[1].cpu(), *mc)
+    ud = float((ug - uc).abs().max())
+    print(f"[mosaic] undistort_map + remap on the card against the CPU: {ud:.2e}")
+    assert ud <= 1e-3, "undistortion differs between card and CPU"
+
+    # Times: add_frame over frames 2-7 (above), then its stages apart, and
+    # one more add_frame (frame 7 onto itself) under the profiler.
+    feats = [mb._detect(frames[k]) for k in (6, 7)]
+    h_canvas = torch.as_tensor(mb.frame_to_canvas(), device=dev)
+    stages = {
+        "detect_ms": median_ms(lambda: mb._detect(frames[7])),
+        "register_ms": median_ms(lambda: mb._register(*feats)),
+        "blend_ms": median_ms(lambda: mb._blend(frames[7], h_canvas)),
+    }
+    prof = profiled_launches(lambda: mb.add_frame(frames[7]))
+    return {"add_frame_ms_median": float(np.median(frame_ms[2:])),
+            "add_frame_ms": frame_ms, "inliers": [i["num_inliers"] for i in infos],
+            "chain_corner_err_px": chain_err, "canvas_median_abs_diff": diff,
+            **stages, "add_frame_launches": prof, "undistort_card_vs_cpu": ud}
+
+
+def per_octave_phase(nt, image, cfg, dev):
+    """The per-octave oracle against the merged path (K2/K3) on one image,
+    within ``tests/test_sift_e2e.py:74-103``'s tolerances."""
+    from niftymatch_torch.sift import detect_and_describe_per_octave
+
+    fo = detect_and_describe_per_octave(image, cfg, device=dev)
+    fm = nt.detect_and_describe(image, cfg, device=dev)
+
+    def order(f):
+        v = f.valid.cpu().numpy()
+        cols = [getattr(f, k).cpu().numpy()[v] for k in ("angle", "y", "x")]
+        return v, np.lexsort(cols)
+
+    vo, oo = order(fo)
+    vm, om = order(fm)
+    assert vo.sum() == vm.sum() > 100, f"per-octave {vo.sum()} against merged {vm.sum()}"
+    worst = {}
+    for field in ("x", "y", "sigma", "angle", "response", "desc"):
+        a = getattr(fo, field).cpu().numpy()[vo][oo]
+        b = getattr(fm, field).cpu().numpy()[vm][om]
+        worst[field] = float(np.abs(a - b).max())
+    print(f"[geometry] per-octave oracle against the merged path, {int(vo.sum())} "
+          f"features: max abs diff {worst}")
+    assert max(worst.values()) <= 1e-4, "per-octave oracle differs from the merged path"
+    return {"per_octave_features": int(vo.sum()), "per_octave_max_diff": worst}
 
 
 def card_line():
@@ -496,6 +806,12 @@ def main():
               f"{bd[0]:.4f} ms ({bd[1]}: {bd[2]} bytes, {bd[3]} ops)"
               + (f", library {lib:.4f} ms" if lib is not None else ""))
 
+    # -- 6. geometry and mosaic --------------------------------------------
+    geometry = quick_start(nt, fa, fb, mres, dev)
+    geometry["ransac"] = every_model(nt, dev)
+    geometry["mosaic"] = mosaic_phase(nt, dev)
+    geometry.update(per_octave_phase(nt, scene[:H, :W], cfg, dev))
+
     def row(key, name, source, replaces, ms, plain, lib):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -523,6 +839,7 @@ def main():
                               "valid_keypoints": n_valid,
                               "k2_adding_pixels": bounds["k2"][4],
                               "k3_adding_pixels": bounds["k3"][4]}}))
+    print(json.dumps({"geometry": geometry}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

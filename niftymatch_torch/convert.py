@@ -21,6 +21,7 @@ from .config import (
     SiftConfig,
 )
 from .features import Features
+from .mosaic import MosaicConfig
 
 
 def sift_config_from_dict(d: dict) -> SiftConfig:
@@ -37,6 +38,12 @@ def pipeline_config_from_dict(d: dict) -> PipelineConfig:
         ba=BAConfig(**d.get("ba", {})),
         runtime=RuntimeConfig(**d.get("runtime", {})),
     )
+
+
+def mosaic_config_from_dict(d: dict) -> MosaicConfig:
+    fields = dict(d)
+    ransac = fields.pop("ransac", {})
+    return MosaicConfig(**fields, ransac=RansacConfig(**ransac))
 
 
 _DTYPES = dict(octave=torch.int32, level=torch.int32, valid=torch.bool)

@@ -13,7 +13,8 @@ of the JAX package; ``descriptor.cu:32-145`` of the reference).
   ``compat.unnormalized_descriptors``.
 
 ``_descriptor_core`` is also the plain version of kernel K3
-(``kernels/windows.py``).
+(``kernels/windows.py``); ``compute_descriptors`` is the per-octave oracle
+path (``sift.detect_and_describe_per_octave``).
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ from ..config import (
     SiftConfig,
 )
 from .gradients import TWO_PI, div_const, mod_2pi
-from .orientation import octave_coords
-from .patches import gather_patches_from_stack, patch_offsets
+from .patches import gather_patches, patch_offsets
 
 NBO = NUM_DESC_ORI_BINS
 NBP = NUM_DESC_SPATIAL_BINS
@@ -126,13 +126,27 @@ def finish_descriptors(desc: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid[..., None], desc, torch.zeros_like(desc))
 
 
-def compute_descriptors_merged(grad_stack, x, y, sigma, octave, level, angle0,
-                               valid, config: SiftConfig):
-    """Descriptors of a merged cross-octave keypoint set from the
-    (O, L, H, W, 2) gradient stack: (M, 128) and validity (M,)."""
-    radius = static_radius_for_level(config.num_dog_levels - 1, config)
-    xo, yo, so, xi, yi = octave_coords(x, y, sigma, octave)
-    patches = gather_patches_from_stack(grad_stack, octave, level, yi, xi, radius)
-    desc = _descriptor_core(patches[..., 0], patches[..., 1], xo, yo, xi, yi, so,
-                            angle0, valid, radius, config)
-    return finish_descriptors(desc, valid, config), valid
+def compute_descriptors(keypoints, angles: torch.Tensor,
+                        angles_valid: torch.Tensor, grad: torch.Tensor,
+                        octave: int, config: SiftConfig, angle_index: int = 0):
+    """Descriptors of one octave's (L, K) keypoints at orientation peak
+    ``angle_index`` from its (L, H, W, 2) gradients
+    (``siftfunctions.cu:154-181``): (L, K, 128) and validity (L, K).  Each
+    level gathers windows of its own static radius around the clamped
+    centre and takes the sub-pixel offsets from the unclamped one, as the
+    JAX per-octave path does."""
+    xper = float(2.0 ** octave)
+    x, y, s = keypoints.x / xper, keypoints.y / xper, keypoints.sigma / xper
+    descs, dvalids = [], []
+    for lvl in range(grad.shape[0]):
+        radius = static_radius_for_level(lvl, config)
+        valid = keypoints.valid[lvl] & angles_valid[lvl, :, angle_index]
+        xi = torch.floor(x[lvl] + 0.5).to(torch.int32)
+        yi = torch.floor(y[lvl] + 0.5).to(torch.int32)
+        patches = gather_patches(grad[lvl], yi, xi, radius)
+        descs.append(_descriptor_core(
+            patches[..., 0], patches[..., 1], x[lvl], y[lvl], xi, yi, s[lvl],
+            angles[lvl, :, angle_index], valid, radius, config))
+        dvalids.append(valid)
+    dvalid = torch.stack(dvalids)
+    return finish_descriptors(torch.stack(descs), dvalid, config), dvalid

@@ -81,3 +81,25 @@ def match_descriptors(desc_a: torch.Tensor, desc_b: torch.Tensor,
     """Distance GEMM + ratio test (``siftfunctions.cu:15-40``)."""
     d = pairwise_sq_distances(desc_a, desc_b, precision=precision)
     return ratio_test_matches(d, ambiguity, a_valid, b_valid)
+
+
+def mutual_matches(fwd: MatchResult, bwd: MatchResult) -> torch.Tensor:
+    """Cross-check: A->B matches whose B->A match points back, else -1
+    (int32 (..., A))."""
+    a_idx = torch.arange(fwd.indices.shape[-1], dtype=torch.int32,
+                         device=fwd.indices.device)
+    hit = fwd.indices >= 0
+    back = torch.gather(bwd.indices, -1, torch.clamp(fwd.indices, min=0).long())
+    back = torch.where(hit, back, torch.full_like(back, -2))
+    return torch.where(back == a_idx, fwd.indices, torch.full_like(fwd.indices, -1))
+
+
+def mutual_ratio_match(desc_a: torch.Tensor, valid_a: torch.Tensor,
+                       desc_b: torch.Tensor, valid_b: torch.Tensor,
+                       ambiguity: float = 0.8) -> torch.Tensor:
+    """Cross-checked Lowe ratio matches of each pair: one distance GEMM,
+    the forward and backward ratio tests, then ``mutual_matches``."""
+    dm = pairwise_sq_distances(desc_a, desc_b)
+    fwd = ratio_test_matches(dm, ambiguity, valid_a, valid_b)
+    bwd = ratio_test_matches(dm.transpose(-1, -2), ambiguity, valid_b, valid_a)
+    return mutual_matches(fwd, bwd)

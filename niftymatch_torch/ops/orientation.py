@@ -10,7 +10,8 @@
   interpolated.
 
 ``_histograms_core`` is also the plain version of kernel K2
-(``kernels/windows.py``).
+(``kernels/windows.py``); ``compute_orientations`` is the per-octave
+oracle path (``sift.detect_and_describe_per_octave``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..config import NUM_ORI_BINS, SiftConfig
 from .gradients import TWO_PI, div_const
-from .patches import gather_patches_from_stack, patch_offsets
+from .patches import gather_patches, patch_offsets
 
 
 def smooth_histogram(hist: torch.Tensor, iterations: int = 6) -> torch.Tensor:
@@ -110,13 +111,28 @@ def octave_coords(x, y, sigma, octave):
     return xo, yo, so, xi, yi
 
 
-def compute_orientations_merged(grad_stack, x, y, sigma, octave, level, valid,
-                                config: SiftConfig):
-    """Orientations of a merged cross-octave keypoint set from the
-    (O, L, H, W, 2) gradient stack: ``angles`` (M, 2), ``valid`` (M, 2)."""
+def _histograms_one_level(grad_level, x, y, s, valid, config: SiftConfig):
+    """Raw (K, 36) histograms of one level's keypoints (octave coords) from
+    its (H, W, 2) gradients.  The window is gathered around the clamped
+    centre, and the sub-pixel offsets are taken from the unclamped one, as
+    the JAX per-octave path does."""
     radius = config.max_orientation_radius
-    xo, yo, so, xi, yi = octave_coords(x, y, sigma, octave)
-    patches = gather_patches_from_stack(grad_stack, octave, level, yi, xi, radius)
-    hists = _histograms_core(patches[..., 0], patches[..., 1], xo, yo, xi, yi,
-                             so, valid, radius, config)
-    return finish_orientations(hists, valid)
+    xi = torch.floor(x + 0.5).to(torch.int32)
+    yi = torch.floor(y + 0.5).to(torch.int32)
+    patches = gather_patches(grad_level, yi, xi, radius)
+    return _histograms_core(patches[..., 0], patches[..., 1], x, y, xi, yi, s,
+                            valid, radius, config)
+
+
+def compute_orientations(keypoints, grad: torch.Tensor, octave: int,
+                         config: SiftConfig):
+    """Orientations of one octave's (L, K) keypoints from its (L, H, W, 2)
+    gradients, each level reading its own slice (``siftfunctions.cu:136-152``):
+    ``angles`` (L, K, 2) with -1 sentinels and ``valid`` (L, K, 2)."""
+    xper = float(2.0 ** octave)
+    x, y, s = keypoints.x / xper, keypoints.y / xper, keypoints.sigma / xper
+    hists = torch.stack([
+        _histograms_one_level(grad[l], x[l], y[l], s[l], keypoints.valid[l], config)
+        for l in range(grad.shape[0])
+    ])
+    return finish_orientations(hists, keypoints.valid)

@@ -2,8 +2,8 @@
 JAX package).
 
 Out-of-image samples read zero-padding, which carries zero gradient
-magnitude and so adds nothing to any histogram.  Out-of-range slab and
-centre indices are clamped, as ``jax.lax.dynamic_slice`` clamps them.
+magnitude and so adds nothing to any histogram.  Out-of-range centre
+indices are clamped, as ``jax.lax.dynamic_slice`` clamps them.
 """
 
 from __future__ import annotations
@@ -24,20 +24,16 @@ def gather_windows(planes: torch.Tensor, slab: torch.Tensor,
     return planes[slab.long()[:, None, None], rows, cols]
 
 
-def gather_patches_from_stack(stack: torch.Tensor, octave: torch.Tensor,
-                              level: torch.Tensor, yc: torch.Tensor,
-                              xc: torch.Tensor, radius: int):
-    """(2 radius + 1)^2 patches from a zero-padded (O, L, H, W[, C])
-    gradient stack at octave-pixel centres (yc, xc): (K, P, P[, C])."""
-    n_oct, n_lvl, h, w = stack.shape[:4]
+def gather_patches(img: torch.Tensor, yc: torch.Tensor, xc: torch.Tensor,
+                   radius: int):
+    """(2 radius + 1)^2 patches of an (H, W[, C]) image centred at integer
+    coordinates (yc, xc), clamped into the image: (K, P, P[, C])."""
+    h, w = img.shape[0], img.shape[1]
     yc = torch.clamp(yc, 0, h - 1)
     xc = torch.clamp(xc, 0, w - 1)
-    pad = [0, 0] * (stack.dim() - 4) + [radius, radius, radius, radius]
-    padded = torch.nn.functional.pad(stack, pad)
-    flat = padded.reshape((n_oct * n_lvl,) + padded.shape[2:])
-    slab = (torch.clamp(octave, 0, n_oct - 1) * n_lvl
-            + torch.clamp(level, 0, n_lvl - 1))
-    return gather_windows(flat, slab, yc, xc, 2 * radius + 1)
+    pad = [0, 0] * (img.dim() - 2) + [radius, radius, radius, radius]
+    padded = torch.nn.functional.pad(img, pad)[None]
+    return gather_windows(padded, torch.zeros_like(yc), yc, xc, 2 * radius + 1)
 
 
 def patch_offsets(radius: int, device="cpu"):

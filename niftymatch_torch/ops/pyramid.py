@@ -71,17 +71,3 @@ def build_pyramid(image: torch.Tensor, config: SiftConfig) -> List[OctaveData]:
         )
         current = downsample_by_2(gauss[..., config.num_dog_levels, :, :])
     return octaves
-
-
-def stack_gradients(octaves: List[OctaveData]) -> torch.Tensor:
-    """Zero-padded (..., O, L, H0, W0, 2) gradient stack: octave ``o``
-    fills the top-left (H0 >> o, W0 >> o) corner of its slice."""
-    g0 = octaves[0].grad
-    lead = g0.shape[:-4]
-    l, h, w, c = g0.shape[-4:]
-    out = torch.zeros(lead + (len(octaves), l, h, w, c), dtype=torch.float32,
-                      device=g0.device)
-    for o, data in enumerate(octaves):
-        ho, wo = data.grad.shape[-3], data.grad.shape[-2]
-        out[..., o, :, :ho, :wo, :] = data.grad
-    return out

@@ -2,6 +2,7 @@
 
     detect_and_describe(image, config) -> Features
     detect_and_describe_batch(images, config) -> Features with a batch axis
+    detect_and_describe_per_octave(image, config) -> Features (the oracle)
     match_pair(feats_a, feats_b) -> MatchResult
 
 One code path serves one image and a batch: a batch of B images is one
@@ -28,8 +29,10 @@ from .kernels.windows import (
     compute_descriptors_merged_kernel,
     compute_orientations_merged_kernel,
 )
+from .ops.descriptor import compute_descriptors
 from .ops.keypoints import detect_keypoints
 from .ops.match import MatchResult
+from .ops.orientation import compute_orientations
 from .ops.pyramid import build_pyramid
 from .utils.precision import resolve_device
 
@@ -146,6 +149,49 @@ def detect_and_describe_batch(images, config: SiftConfig,
     """(B, H, W) -> Features with a leading batch axis on every field."""
     dev = resolve_device(device)
     return _detect_describe(_as_images(images, dev), config)
+
+
+def _octave_features(octave_idx: int, octave_data, config: SiftConfig,
+                     mask_image=None) -> Features:
+    """Every capacity slot of one octave through detection, orientations and
+    descriptors: Features of shape (L * K,), or (2 L K,) with the second
+    orientation."""
+    kpts = detect_keypoints(octave_data.dog, octave_idx, config, mask_image=mask_image)
+    angles, avalid = compute_orientations(kpts, octave_data.grad, octave_idx, config)
+    n = kpts.x.numel()
+
+    def block(angle_index: int) -> Features:
+        desc, dvalid = compute_descriptors(kpts, angles, avalid, octave_data.grad,
+                                           octave_idx, config, angle_index)
+        angle = torch.where(avalid[..., angle_index], angles[..., angle_index],
+                            torch.zeros_like(angles[..., angle_index]))
+        return Features(
+            x=kpts.x.reshape(n), y=kpts.y.reshape(n), sigma=kpts.sigma.reshape(n),
+            angle=angle.reshape(n), response=kpts.response.reshape(n),
+            octave=torch.full((n,), octave_idx, dtype=torch.int32, device=kpts.x.device),
+            level=kpts.level.reshape(n), desc=desc.reshape(n, -1),
+            valid=dvalid.reshape(n),
+        )
+
+    out = block(0)
+    if config.use_second_orientation:
+        out = concat_features([out, block(1)])
+    return out
+
+
+def detect_and_describe_per_octave(image, config: SiftConfig, mask=None,
+                                   device=None) -> Features:
+    """The reference-shaped per-octave pipeline, the oracle of the merged
+    path: orientations and descriptors for every capacity slot of every
+    octave in plain PyTorch, then one global top-k.  It differs from
+    ``detect_and_describe`` only where a selected keypoint has no
+    orientation peak (the merged path then leaves its slot empty)."""
+    dev = resolve_device(device)
+    masks = None if mask is None else _as_images(mask, dev)
+    octaves = build_pyramid(_as_images(image, dev), config)
+    parts = [_octave_features(o, data, config, masks)
+             for o, data in enumerate(octaves)]
+    return topk_features(concat_features(parts), config.max_features)
 
 
 def match_pair(feats_a: Features, feats_b: Features, ambiguity: float = 0.8,

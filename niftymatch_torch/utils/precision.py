@@ -11,6 +11,8 @@ switches; ``resolve_device`` calls it, so every entry point runs exact.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -18,6 +20,17 @@ def exact_fp32() -> None:
     """Turn TF32 off for CUDA matmuls and cuDNN convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def f32(fn):
+    """Run ``fn`` with TF32 off: the counterpart of the JAX package's
+    ``@f32`` (``Precision.HIGHEST``) on the geometry functions, whose
+    small products lose their null spaces in TF32."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        exact_fp32()
+        return fn(*args, **kwargs)
+    return wrapped
 
 
 def resolve_device(device=None) -> torch.device:

@@ -10,6 +10,7 @@ import niftymatch_torch.config as tc
 import niftymatch_tpu.config as jc
 from niftymatch_torch.convert import (
     features_from_numpy,
+    mosaic_config_from_dict,
     pipeline_config_from_dict,
     sift_config_from_dict,
 )
@@ -61,6 +62,22 @@ def test_pipeline_config_round_trip():
     assert sift_config_from_dict(dataclasses.asdict(j.sift)) == t.sift
     assert tc.PipelineConfig.for_image(64, 48) == tc.PipelineConfig(
         sift=tc.SiftConfig(width=64, height=48))
+
+
+def test_mosaic_config_round_trip():
+    from niftymatch_torch.mosaic import MosaicConfig
+    from niftymatch_tpu.mosaic import MosaicConfig as JMosaicConfig
+
+    j = JMosaicConfig(
+        width=128, height=96, canvas_width=512, anchor_x=12.5,
+        ransac=jc.RansacConfig(iterations=300, inlier_threshold=4.0, seed=3),
+        ambiguity=0.75, camera_matrix=(100.0, 101.0, 63.5, 47.5),
+        distortion=(-0.1, 0.01, 0.0), center_weighted=False,
+    )
+    t = mosaic_config_from_dict(dataclasses.asdict(j))
+    assert isinstance(t, MosaicConfig) and isinstance(t.ransac, tc.RansacConfig)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert mosaic_config_from_dict(dataclasses.asdict(JMosaicConfig(64, 48))) == MosaicConfig(64, 48)
 
 
 def test_features_round_trip(rng):

@@ -30,11 +30,15 @@ from niftymatch_torch.kernels import match as tk
 from niftymatch_torch.kernels import windows as tw
 from niftymatch_torch.sift import keypoints_and_planes
 from torch_parity import (
+    PLANAR_TRUTH,
     assert_hist_close,
     cuda_device,
+    dense_blob_scene,
     np_,
+    planar_correspondences,
     sorted_valid,
     structured_image,
+    two_view,
 )
 
 H, W = 96, 128
@@ -420,3 +424,119 @@ def test_k1_k2_k3_rerun_bit_identical():
         first = tk.fused_match_topk_prepared(*ops)
         second = tk.fused_match_topk_prepared(*ops)
         assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+# --- geometry, warp and mosaic on the card ---------------------------------
+
+
+@pytest.mark.parametrize("model", ["translation", "similarity", "homography",
+                                   "fundamental", "essential", "essential5"])
+def test_ransac_on_card_matches_cpu(model):
+    """One injected draw on the card and on the CPU: the same transform
+    (corners within 1e-3 px for the 2-D models, entries within 1e-3 up to
+    sign for the epipolar ones), and inlier flags that differ only at
+    points whose error lies within 1e-4 tau of tau (CUDA divides by a
+    Python number through its rounded reciprocal)."""
+    from niftymatch_torch.geometry.ransac import _error_fn
+
+    dev = cuda_device()
+    rng = np.random.default_rng(8)
+    n, iters = 512, 512
+    if model in PLANAR_TRUTH:
+        src, dst = planar_correspondences(rng, model, n, n // 3)
+        tau = 4.0
+    else:
+        src, dst, _ = two_view(rng, n, outliers=n // 3)
+        tau = 1e-5
+    mask = np.ones(n, bool)
+    scores = rng.gumbel(size=(iters, n)).astype(np.float32)
+    cfg = nt.RansacConfig(iterations=iters, inlier_threshold=tau)
+    _build.reset_launches()
+    rg = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
+    rc = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device="cpu")
+    assert bool(rg.success) and bool(rc.success)
+    assert sum(_build.LAUNCHES.values()) == 0
+    tg, tc = np_(rg.transform), np_(rc.transform)
+    if model in PLANAR_TRUTH:
+        corners = np.array([[0, 0, 1], [300, 0, 1], [0, 300, 1], [300, 300, 1]], float).T
+        pg, pc = tg @ corners, tc @ corners
+        assert np.abs(pg[:2] / pg[2] - pc[:2] / pc[2]).max() <= 1e-3
+        err = np_(_error_fn(model)(rc.transform, torch.from_numpy(src),
+                                   torch.from_numpy(dst)))
+        differ = np_(rg.inliers) != np_(rc.inliers)
+        assert (np.abs(err[differ] - tau) <= 1e-4 * tau).all()
+        return
+    # Epipolar winners are chosen by inlier count, and many hypotheses tie:
+    # rounding may pick another one on the card, so hold each side to the
+    # truth instead.
+    truth = np.ones(n, bool)
+    truth[: n // 3] = False
+    for r in (rg, rc):
+        err = np_(_error_fn(model)(r.transform.cpu(), torch.from_numpy(src),
+                                   torch.from_numpy(dst)))
+        assert (err[truth] < tau).all() and np_(r.inliers)[truth].all()
+        assert abs(int(r.num_inliers) - truth.sum()) <= 0.02 * n
+
+
+def test_warp_and_blend_on_card_match_cpu():
+    from niftymatch_torch.ops import warp as tw_
+
+    dev = cuda_device()
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.uniform(0, 255, (48, 64)).astype(np.float32))
+    hom = torch.tensor([[0.98, 0.05, 3.5], [-0.04, 1.02, -2.25], [1e-4, -2e-4, 1.0]])
+    for inverse in (False, True):
+        g = tw_.warp_perspective(img.to(dev), hom.to(dev), (40, 56), inverse)
+        c = tw_.warp_perspective(img, hom, (40, 56), inverse)
+        np.testing.assert_allclose(np_(g), np_(c), atol=1e-3)
+    cam, dist = torch.tensor([60.0, 58.0, 31.5, 23.5]), torch.tensor([-0.2, 0.05, 0.0])
+    g = tw_.remap(img.to(dev), *tw_.undistort_map(cam.to(dev), dist.to(dev), 48, 64))
+    c = tw_.remap(img, *tw_.undistort_map(cam, dist, 48, 64))
+    np.testing.assert_allclose(np_(g), np_(c), atol=1e-3)
+    fw = torch.ones((48, 64))
+    canvas, weights = torch.zeros((80, 100)), torch.zeros((80, 100))
+    shift = torch.tensor([[1.0, 0, -10], [0, 1, -12], [0, 0, 1]])
+    gc, gw = tw_.blend_into_mosaic(canvas.to(dev), weights.to(dev), img.to(dev),
+                                   fw.to(dev), shift.to(dev))
+    cc, cw = tw_.blend_into_mosaic(canvas, weights, img, fw, shift)
+    np.testing.assert_allclose(np_(gc), np_(cc), atol=1e-3)
+    np.testing.assert_array_equal(np_(gw), np_(cw))
+
+
+def test_mosaic_add_frame_launches_and_registers():
+    """Each add_frame after the first launches K1 twice (both match
+    directions), K2 and K3 once; shifted crops register."""
+    from niftymatch_torch.mosaic import MosaicBuilder, MosaicConfig
+
+    dev = cuda_device()
+    scene = dense_blob_scene(H + 40, W + 60)
+    mb = MosaicBuilder(MosaicConfig(width=W, height=H, canvas_width=320, canvas_height=240,
+                                    detector_features=256), device=dev)
+    assert mb.add_frame(scene[:H, :W])["registered"]
+    for k in (1, 2):
+        _build.reset_launches()
+        info = mb.add_frame(scene[10 * k:10 * k + H, 14 * k:14 * k + W])
+        torch.cuda.synchronize()
+        assert info["registered"], info
+        assert _build.LAUNCHES == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
+                                   "k2_orientation_hist": 1, "k3_descriptor": 1}
+    h = mb.frame_to_canvas()
+    np.testing.assert_allclose(h[:2, 2] - np.array([(320 - W) / 2, (240 - H) / 2]),
+                               [28, 20], atol=1.0)
+
+
+def test_per_octave_on_card_matches_merged():
+    """The plain per-octave oracle against the merged path through K2/K3,
+    both on the card (``tests/test_sift_e2e.py:74-103``'s tolerances)."""
+    dev = cuda_device()
+    img = structured_image(H, W, seed=7)
+    fo = nt.sift.detect_and_describe_per_octave(img, CFG, device=dev)
+    fm = nt.detect_and_describe(img, CFG, device=dev)
+    vo, vm = np_(fo.valid), np_(fm.valid)
+    assert vo.sum() == vm.sum() > 10
+    oo = np.lexsort([np_(getattr(fo, k))[vo] for k in ("angle", "y", "x")])
+    om = np.lexsort([np_(getattr(fm, k))[vm] for k in ("angle", "y", "x")])
+    for field in ("x", "y", "sigma", "angle", "response", "desc"):
+        np.testing.assert_allclose(np_(getattr(fo, field))[vo][oo],
+                                   np_(getattr(fm, field))[vm][om], atol=1e-4,
+                                   err_msg=field)

@@ -23,7 +23,11 @@ import torch
 import niftymatch_torch as nt
 from niftymatch_torch.convert import pipeline_config_from_dict
 from niftymatch_tpu.config import PipelineConfig, SiftConfig
-from niftymatch_tpu.sift import detect_and_describe, match_pair
+from niftymatch_tpu.sift import (
+    detect_and_describe,
+    detect_and_describe_per_octave,
+    match_pair,
+)
 from torch_parity import bench_scene, np_, port_config, sorted_valid, structured_image
 
 H, W = 96, 128
@@ -121,6 +125,48 @@ def test_pair_pipeline_matches_jax_match_pair():
     assert np.median(dx) == pytest.approx(-5.0, abs=0.01)
 
 
+def _by_angle_y_x(f):
+    """Valid mask and the order of ``tests/test_sift_e2e.py:92-93``."""
+    v = np_(f.valid).astype(bool)
+    return v, np.lexsort((np_(f.angle)[v], np_(f.y)[v], np_(f.x)[v]))
+
+
+def _assert_same_feature_set(a, b):
+    """``tests/test_sift_e2e.py:90-103``: the same valid count, every field
+    and the descriptors within 1e-4, sorted by (x, y, angle)."""
+    va, oa = _by_angle_y_x(a)
+    vb, ob = _by_angle_y_x(b)
+    assert va.sum() == vb.sum() > 10
+    for field in ("x", "y", "sigma", "angle", "response", "desc"):
+        np.testing.assert_allclose(np_(getattr(a, field))[va][oa],
+                                   np_(getattr(b, field))[vb][ob], atol=1e-4,
+                                   err_msg=field)
+    for field in ("octave", "level"):
+        np.testing.assert_array_equal(np_(getattr(a, field))[va][oa],
+                                      np_(getattr(b, field))[vb][ob], err_msg=field)
+
+
+@pytest.mark.parametrize("case", ["first", "second", "masked"])
+def test_per_octave_matches_jax_and_merged(case):
+    """The port's per-octave oracle against the JAX one, and against the
+    port's merged path, at 96x128 (``tests/test_sift_e2e.py:74-103``)."""
+    jcfg = dataclasses.replace(JCFG, use_second_orientation=case == "second")
+    img = structured_image(H, W, seed=7)
+    mask = None
+    if case == "masked":
+        mask = np.zeros((H, W), np.float32)
+        mask[:, 20:100] = 1.0
+    jf = jax.device_get(jax.jit(
+        lambda x, m: detect_and_describe_per_octave(x, jcfg, mask=m))(
+            jnp.asarray(img), None if mask is None else jnp.asarray(mask)))
+    tcfg = port_config(jcfg)
+    tf = nt.sift.detect_and_describe_per_octave(img, tcfg, mask=mask, device="cpu")
+    assert tf.desc.shape == (jcfg.max_features, 128)
+    _assert_same_feature_set(tf, jf)
+    merged = nt.detect_and_describe(img, tcfg, mask=mask, device="cpu")
+    _assert_same_feature_set(tf, merged)
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, chip_smoke, niftymatch_torch, niftymatch_torch.convert;"
@@ -146,3 +192,5 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     f = nt.Features.empty(4)
     with pytest.raises(RuntimeError, match="CUDA"):
         nt.match_pair(f, f)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nt.sift.detect_and_describe_per_octave(img, cfg)

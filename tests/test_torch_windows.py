@@ -21,7 +21,6 @@ import torch
 import chip_smoke
 from niftymatch_torch.kernels import windows as tw
 from niftymatch_torch.ops import descriptor as t_desc
-from niftymatch_torch.ops import orientation as t_ori
 from niftymatch_torch.ops.patches import gather_windows, patch_offsets
 from niftymatch_torch.ops.pyramid import OctaveData
 from niftymatch_tpu.config import SiftConfig
@@ -126,9 +125,10 @@ def test_plain_k3_matches_pallas_interpret():
 
 
 def test_merged_paths_match_jax_jnp_merged():
-    """At max_features=256 the port's kernel path (plain on the CPU), the
-    port's stack path and the JAX jnp merged path give the same
-    orientations and descriptors."""
+    """At max_features=256 the port's kernel path (plain on the CPU) and
+    the JAX jnp merged path give the same orientations and descriptors.
+    (The port's per-octave oracle is held against the JAX one in
+    ``tests/test_torch_sift.py``.)"""
     cfg, mk, grads, _, gstack = _front(seed=4, max_features=256)
     tcfg = port_config(cfg)
     valid = mk["valid"]
@@ -139,11 +139,8 @@ def test_merged_paths_match_jax_jnp_merged():
     planes = _port_planes(grads, cfg)
     ta, tv = tw.compute_orientations_merged_kernel(
         planes, *_kp_args(tmk, lambda a: a), tmk["valid"], tcfg)
-    sa, sv = t_ori.compute_orientations_merged(
-        torch.from_numpy(np.array(gstack)), *_kp_args(tmk, lambda a: a), tmk["valid"], tcfg)
-    for a, v in ((ta, tv), (sa, sv)):
-        np.testing.assert_array_equal(np_(v), np.asarray(jv))
-        np.testing.assert_allclose(np_(a), np.asarray(ja), atol=1e-4)
+    np.testing.assert_array_equal(np_(tv), np.asarray(jv))
+    np.testing.assert_allclose(np_(ta), np.asarray(ja), atol=1e-4)
 
     bvalid = valid & np.asarray(jv)[:, 0]
     angle0 = np.asarray(ja)[:, 0]
@@ -153,11 +150,7 @@ def test_merged_paths_match_jax_jnp_merged():
     td, _ = tw.compute_descriptors_merged_kernel(
         planes, *_kp_args(tmk, lambda a: a), torch.from_numpy(angle0),
         torch.from_numpy(bvalid), tcfg)
-    sd, _ = t_desc.compute_descriptors_merged(
-        torch.from_numpy(np.array(gstack)), *_kp_args(tmk, lambda a: a),
-        torch.from_numpy(angle0), torch.from_numpy(bvalid), tcfg)
-    for d in (td, sd):
-        np.testing.assert_allclose(np_(d), np.asarray(jd), atol=2e-3)
+    np.testing.assert_allclose(np_(td), np.asarray(jd), atol=2e-3)
 
 
 def test_bound_counts_the_pixels_that_add():
