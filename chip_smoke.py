@@ -45,10 +45,29 @@ Phases (any failed check raises, so the script exits non-zero):
      the card against the CPU; the per-octave oracle against the merged
      path; then ms per ``ransac`` call for each model, ms per ``add_frame``
      and its stages, and the kernel launches of one homography ``ransac``
-     and one ``add_frame`` from ``torch.profiler``.
+     and one ``add_frame`` from ``torch.profiler``;
+  7. the SfM back-end on the card (``niftymatch_torch/utils/smoke_sfm.py``):
+     (7a) two-view pose from 8 rendered 640x480 views of 1,200 landmarks
+     (one batched detection, K2 and K3 once; ``estimate_two_view`` on pairs
+     (0,1), (1,2), (2,3) at 1024 RANSAC iterations, K1 twice each, counted
+     with the counts reset just before and read just after): >= 2 pairs
+     with >= 20 inliers, median max |R - R_true| < 0.2
+     (``tests/test_rendered_vo.py``'s bars); (7b) dense window BA at
+     ``BAConfig()`` on 5 x 1,024 and 16 x 4,096 (cost / 1000, poses within
+     2e-3, landmarks within 5e-3, the 5 x 1,024 cost trace equal to the
+     CPU's within 1e-3); (7c) PCG BA at 512 cameras x 131,072 landmarks x
+     2,097,152 observations (``benchmarks/global_ba_eval.py``'s problem;
+     initial cost within 1e-3 and final within 2 % of the JAX package's,
+     poses within 0.25); (7d) SE(3) and Sim(3) pose graphs at 256 nodes and
+     Sim(3)-CG at 1,200 (cost cut by 50 / 95 / 95 %, ATE down, scale profile
+     within 0.2); then ms per call of each, 7c's wall time, M
+     obs-updates/s and peak memory, and the launches, device ms and host
+     syncs of one ``estimate_two_view`` and of one LM iteration (7b, 7c)
+     from ``torch.profiler``.
 
-Prints a ``{"geometry": ...}`` line, a ``{"kernels": [...]}`` line, the
-nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+Prints a ``{"geometry": ...}`` line, an ``{"sfm": ...}`` line, a
+``{"kernels": [...]}`` line, the nvidia-smi line, and as its last line
+``{"ok": true, "device": {...}}``.
 Exits non-zero with no result when CUDA is absent or the package is not
 beside the script.
 """
@@ -812,6 +831,11 @@ def main():
     geometry["mosaic"] = mosaic_phase(nt, dev)
     geometry.update(per_octave_phase(nt, scene[:H, :W], cfg, dev))
 
+    # -- 7. the SfM back-end -----------------------------------------------
+    from niftymatch_torch.utils import smoke_sfm
+
+    sfm = smoke_sfm.run(dev)
+
     def row(key, name, source, replaces, ms, plain, lib):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
@@ -840,6 +864,7 @@ def main():
                               "k2_adding_pixels": bounds["k2"][4],
                               "k3_adding_pixels": bounds["k3"][4]}}))
     print(json.dumps({"geometry": geometry}))
+    print(json.dumps({"sfm": sfm}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

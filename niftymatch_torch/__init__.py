@@ -3,10 +3,13 @@
 SIFT detection, description and matching on NVIDIA Hopper, with the JAX
 package's three TPU kernels rewritten as hand-written CUDA kernels
 (``kernels/``, sources in ``csrc/``); RANSAC geometry (``geometry/``),
-warping (``ops/warp.py``) and mosaicking (``mosaic.py``) in plain
-PyTorch, as the JAX package writes them in plain ``jnp``.  The port imports
-``torch`` and never ``jax`` or ``niftymatch_tpu``.  Entry points run on CUDA unless they are
-given ``device="cpu"``.
+warping (``ops/warp.py``), mosaicking (``mosaic.py``), the SfM back-end
+(``sfm/``: SE(3)/Sim(3), triangulation, dense and PCG bundle adjustment,
+pose graphs), the two-view SLAM front end (``slam/frontend.py``) and
+synthetic scenes (``data/``) in plain PyTorch, as the JAX package writes
+them in plain ``jnp``.  The port imports ``torch`` and never ``jax`` or
+``niftymatch_tpu``.  Entry points run on CUDA unless they are given
+``device="cpu"``.
 """
 
 from .config import (
@@ -21,6 +24,15 @@ from .config import (
 from .features import Features, concat_features, topk_features
 from .geometry import RansacResult, align_points, ransac
 from .ops.match import MatchResult
+from .sfm import (
+    BAProblem,
+    PoseGraph,
+    Sim3Graph,
+    bundle_adjust,
+    bundle_adjust_cg,
+    optimize_pose_graph,
+    optimize_pose_graph_sim3,
+)
 from .sift import (
     detect_and_describe,
     detect_and_describe_batch,
@@ -29,26 +41,35 @@ from .sift import (
     make_pair_pipeline,
     match_pair,
 )
+from .slam import estimate_two_view
 
 __all__ = [
     "BAConfig",
+    "BAProblem",
     "CompatFlags",
     "Features",
     "MatchConfig",
     "MatchResult",
     "PipelineConfig",
+    "PoseGraph",
     "RansacConfig",
     "RansacResult",
     "RuntimeConfig",
     "SiftConfig",
+    "Sim3Graph",
     "align_points",
+    "bundle_adjust",
+    "bundle_adjust_cg",
     "concat_features",
     "detect_and_describe",
     "detect_and_describe_batch",
+    "estimate_two_view",
     "make_batch_detector",
     "make_detector",
     "make_pair_pipeline",
     "match_pair",
+    "optimize_pose_graph",
+    "optimize_pose_graph_sim3",
     "ransac",
     "topk_features",
 ]

@@ -1,15 +1,16 @@
 """Carry configs and feature sets across from the JAX package.
 
-The system has no weights; what carries across is the config tree and the
-``Features`` sets.  These functions take plain Python and numpy data
+The system has no weights; what carries across is the config tree, the
+``Features`` sets and the SfM state (bundle-adjustment problems and pose
+graphs).  These functions take plain Python and numpy data
 (``dataclasses.asdict`` of a JAX-side config, ``numpy.asarray`` of each
-``Features`` field), so the port still imports nothing of the JAX package.
+field of a ``Features`` or of a JAX NamedTuple's ``_asdict()``), so the
+port still imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .config import (
     BAConfig,
@@ -22,6 +23,9 @@ from .config import (
 )
 from .features import Features
 from .mosaic import MosaicConfig
+from .sfm.ba import BAProblem
+from .sfm.posegraph import PoseGraph, Sim3Graph
+from .utils.precision import state_to
 
 
 def sift_config_from_dict(d: dict) -> SiftConfig:
@@ -46,15 +50,22 @@ def mosaic_config_from_dict(d: dict) -> MosaicConfig:
     return MosaicConfig(**fields, ransac=RansacConfig(**ransac))
 
 
-_DTYPES = dict(octave=torch.int32, level=torch.int32, valid=torch.bool)
-
-
 def features_from_numpy(arrays: dict, device="cpu") -> Features:
     """A port ``Features`` from a dict of numpy arrays keyed by field name."""
-    return Features(**{
-        name: torch.as_tensor(np.asarray(arrays[name]),
-                              dtype=_DTYPES.get(name, torch.float32),
-                              device=device)
-        for name in Features._fields
-    })
+    return state_to(Features(*[np.array(arrays[k]) for k in Features._fields]), device)
 
+
+def ba_problem_from_numpy(arrays: dict, device="cpu") -> BAProblem:
+    """A port ``BAProblem`` from a dict of numpy arrays keyed by field name
+    (floats float32, ``obs_cam``/``obs_lm`` int32, masks bool)."""
+    return state_to(BAProblem(*[np.array(arrays[k]) for k in BAProblem._fields]), device)
+
+
+def pose_graph_from_numpy(arrays: dict, device="cpu") -> PoseGraph:
+    """A port ``PoseGraph`` from a dict of numpy arrays keyed by field name."""
+    return state_to(PoseGraph(*[np.array(arrays[k]) for k in PoseGraph._fields]), device)
+
+
+def sim3_graph_from_numpy(arrays: dict, device="cpu") -> Sim3Graph:
+    """A port ``Sim3Graph`` from a dict of numpy arrays keyed by field name."""
+    return state_to(Sim3Graph(*[np.array(arrays[k]) for k in Sim3Graph._fields]), device)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..features import topk_desc_stable
-from ..utils.precision import f32
+from ..utils.precision import device_constant, f32
 from .linalg import sorted_eigh
 
 # Nister's monomial order: 0:x3 1:y3 2:x2y 3:xy2 4:x2z 5:x2 6:y2z 7:y2 8:xyz
@@ -125,10 +125,10 @@ def essential_from_five(src: torch.Tensor, dst: torch.Tensor):
     basis = V[..., :, :4].transpose(-1, -2).reshape(batch + (4, 3, 3))
     E1, E2, E3, E4 = (basis[..., i, None, :, :] for i in range(4))
 
-    t = torch.as_tensor(_SAMPLES_F32, device=A.device)[:, :, None, None]
+    t = device_constant(_SAMPLES_F32, A.device)[:, :, None, None]
     Es = t[:, 0] * E1 + t[:, 1] * E2 + t[:, 2] * E3 + E4        # (..., 20, 3, 3)
     vals = _trace_constraints(Es)                                # (..., 20, 10)
-    coeffs = vals.transpose(-1, -2) @ torch.as_tensor(_MONO_INV_T, device=A.device)
+    coeffs = vals.transpose(-1, -2) @ device_constant(_MONO_INV_T, A.device)
     At = torch.linalg.solve(coeffs[..., :10], coeffs[..., 10:])  # (..., 10, 10)
 
     def row_pair(a, b):

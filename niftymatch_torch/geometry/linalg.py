@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.gradients import div_const
-from ..utils.precision import f32
+from ..utils.precision import device_constant, f32
 
 
 def _jacobi_rotation(app, aqq, apq):
@@ -45,8 +45,8 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 12):
     eye = torch.eye(n, dtype=A.dtype, device=A.device)
     V = eye.expand(A.shape).clone()
     pairs = [(p, q) for p in range(n - 1) for q in range(p + 1, n)]
-    block = torch.tensor([[p, p, q, q, p, q, p, q] for p, q in pairs],
-                         dtype=torch.long, device=A.device)
+    block = device_constant([[p, p, q, q, p, q, p, q] for p, q in pairs], A.device,
+                            torch.long)
     for _ in range(sweeps):
         for i, (p, q) in enumerate(pairs):
             c, s = _jacobi_rotation(A[..., p, p], A[..., q, q], A[..., p, q])
@@ -121,7 +121,7 @@ def smallest_eigvec(A: torch.Tensor, iterations: int = 8) -> torch.Tensor:
 
     seed = np.random.default_rng(12345).normal(size=n).astype(np.float32)
     seed /= np.linalg.norm(seed)
-    x = torch.as_tensor(seed, device=A.device).expand(A.shape[:-1])
+    x = device_constant(seed, A.device).expand(A.shape[:-1])
     for _ in range(iterations):
         x = _cholesky_solve(L, x)
         norm = torch.sqrt((x * x).sum(-1, keepdim=True))

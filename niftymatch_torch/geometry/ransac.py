@@ -168,8 +168,11 @@ def ransac(src, dst, mask, config: RansacConfig = RansacConfig(),
     else:
         best = torch.argmax(is_inlier.sum(-1) * live)
 
-    transform = models[best]
-    inliers = is_inlier[best]
+    # Index with a 1-element tensor: a 0-dim tensor index is read on the
+    # host (a synchronisation on CUDA).
+    best = best.reshape(1)
+    transform = models.index_select(0, best)[0]
+    inliers = is_inlier.index_select(0, best)[0]
     if refit and model != "translation":
         refit_w = inliers.to(torch.float32)
         refitted = fitter(src, dst, refit_w)
@@ -178,10 +181,10 @@ def ransac(src, dst, mask, config: RansacConfig = RansacConfig(),
         re_inl = (re_err < tau) & mask
         if use_msac:
             re_score = torch.where(mask, torch.clamp(re_err, max=tau), zero).sum()
-            keep = re_score <= msac[best]
+            keep = re_score <= msac.index_select(0, best)[0]
         else:
             keep = re_inl.sum() >= inliers.sum()
-        transform = torch.where(keep, transform, models[best])
+        transform = torch.where(keep, transform, models.index_select(0, best)[0])
         inliers = torch.where(keep, re_inl, inliers)
 
     num = inliers.sum(dtype=torch.int32)

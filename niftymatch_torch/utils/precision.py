@@ -46,3 +46,30 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return dev
+
+
+def device_constant(values, device, dtype=None) -> torch.Tensor:
+    """A tensor of constant values (a list or numpy array) on ``device``
+    without waiting on it.  ``torch.tensor(..., device="cuda")`` copies
+    with a stream synchronisation, so the host waits for every queued
+    kernel; a non-blocking copy of a host tensor is queued instead (CUDA
+    stages pageable memory before the call returns)."""
+    return torch.as_tensor(values, dtype=dtype).to(device, non_blocking=True)
+
+
+# Field names of the port's state tuples (``Features``, ``BAProblem``,
+# ``PoseGraph``, ``Sim3Graph``) that are not float32.
+_FIELD_DTYPES = dict(
+    octave=torch.int32, level=torch.int32, obs_cam=torch.int32, obs_lm=torch.int32,
+    edge_i=torch.int32, edge_j=torch.int32, valid=torch.bool, obs_valid=torch.bool,
+    pose_fixed=torch.bool, edge_valid=torch.bool, node_fixed=torch.bool)
+
+
+def state_to(state, device):
+    """The NamedTuple ``state`` (numpy arrays or tensors) with every field
+    on ``device``: indices int32 and masks bool by field name, the rest
+    float32."""
+    return type(state)(*[
+        torch.as_tensor(a, device=device).to(_FIELD_DTYPES.get(name, torch.float32))
+        for name, a in zip(state._fields, state)
+    ])

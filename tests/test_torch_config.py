@@ -9,10 +9,13 @@ import pytest
 import niftymatch_torch.config as tc
 import niftymatch_tpu.config as jc
 from niftymatch_torch.convert import (
+    ba_problem_from_numpy,
     features_from_numpy,
     mosaic_config_from_dict,
     pipeline_config_from_dict,
+    pose_graph_from_numpy,
     sift_config_from_dict,
+    sim3_graph_from_numpy,
 )
 
 _DERIVED = ("level_max", "level_min", "num_octaves", "num_gauss_levels",
@@ -62,6 +65,50 @@ def test_pipeline_config_round_trip():
     assert sift_config_from_dict(dataclasses.asdict(j.sift)) == t.sift
     assert tc.PipelineConfig.for_image(64, 48) == tc.PipelineConfig(
         sift=tc.SiftConfig(width=64, height=48))
+
+
+def _sfm_state(kind):
+    """A JAX ``BAProblem``, ``PoseGraph`` or ``Sim3Graph`` from the JAX
+    tests build them, and its cost function."""
+    import jax.numpy as jnp
+
+    from niftymatch_tpu.sfm import ba as jba
+    from niftymatch_tpu.sfm import posegraph as jp
+    from test_ba import _perturbed_problem
+    from test_posegraph_sim3 import _drifted_loop, _graphs
+
+    if kind == "ba":
+        _, problem = _perturbed_problem(seed=1, outlier_frac=0.05)
+        valid = np.asarray(problem.obs_valid).copy()
+        valid[::3] = False
+        return problem._replace(obs_valid=jnp.asarray(valid)), lambda p: jba.ba_cost(p, 2.0)
+    sim3, se3 = _graphs(*_drifted_loop(n=12, gamma=1.06))
+    if kind == "pose_graph":
+        return se3, jp.graph_cost
+    return sim3._replace(scale=jnp.linspace(0.9, 1.2, 12)), jp.sim3_graph_cost
+
+
+@pytest.mark.parametrize("kind", ["ba", "pose_graph", "sim3_graph"])
+def test_sfm_state_round_trip(kind):
+    """JAX state -> numpy -> port -> numpy is bit for bit the original,
+    dtypes kept (int32 indices, bool masks); the costs agree at 1e-6."""
+    from niftymatch_torch.sfm import ba as tba
+    from niftymatch_torch.sfm import posegraph as tp
+
+    state, cost = _sfm_state(kind)
+    arrays = {k: np.asarray(v) for k, v in state._asdict().items()}
+    convert, port_cost = {
+        "ba": (ba_problem_from_numpy, lambda p: tba.ba_cost(p, 2.0)),
+        "pose_graph": (pose_graph_from_numpy, tp.graph_cost),
+        "sim3_graph": (sim3_graph_from_numpy, tp.sim3_graph_cost),
+    }[kind]
+    port = convert(arrays)
+    assert list(port._fields) == list(state._fields)
+    for name, a in arrays.items():
+        back = getattr(port, name).numpy()
+        assert back.dtype == a.dtype, name
+        np.testing.assert_array_equal(back, a, err_msg=name)
+    np.testing.assert_allclose(float(port_cost(port)), float(cost(state)), rtol=1e-6)
 
 
 def test_mosaic_config_round_trip():

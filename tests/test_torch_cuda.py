@@ -15,7 +15,9 @@ product); K1 fp32 min1/min2 within 2e-3 with exact indices where the top-2
 gap exceeds 1e-3; K1 bf16 index agreement above 0.999 where the gap
 exceeds 2% (``tests/test_pallas_match.py:107-129``).  K1, K2 and K3 give
 the same bits on every run, and K2 the same bits for a keypoint in a batch
-as for the keypoint's image alone.
+as for the keypoint's image alone.  The SfM back-end on the card agrees
+with its CPU run (cost traces within 1e-3, poses within 1e-3) and passes
+``chip_smoke.py``'s phase 7 at small sizes.
 """
 
 import dataclasses
@@ -540,3 +542,94 @@ def test_per_octave_on_card_matches_merged():
         np.testing.assert_allclose(np_(getattr(fo, field))[vo][oo],
                                    np_(getattr(fm, field))[vm][om], atol=1e-4,
                                    err_msg=field)
+
+
+# --- the SfM back-end on the card -------------------------------------------
+
+
+def test_two_view_on_card_matches_cpu():
+    """``estimate_two_view`` on synthetic features with one injected draw
+    for each model: the card launches K1 twice and gives the CPU's
+    matches, and R, t within 1e-3 of the CPU's and of the truth."""
+    from niftymatch_torch.data import make_feature_sequence, make_scene
+    from niftymatch_torch.utils.smoke_sfm import _rel_pose
+
+    dev = cuda_device()
+    scene = make_scene(num_cams=3, num_landmarks=600, seed=2)
+    feats = make_feature_sequence(scene, capacity=512, seed=2)
+    intr = tuple(float(v) for v in scene.intrinsics)
+    cfg = nt.RansacConfig(iterations=512, inlier_threshold=4.0)
+    rng = np.random.default_rng(3)
+    se, sh = (rng.gumbel(size=(512, 512)).astype(np.float32) for _ in range(2))
+    _build.reset_launches()
+    got = nt.estimate_two_view(*feats[:2], intr, cfg, scores_e=se, scores_h=sh, device=dev)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k1_match_top2"] == 2
+    want = nt.estimate_two_view(*feats[:2], intr, cfg, scores_e=se, scores_h=sh, device="cpu")
+    np.testing.assert_array_equal(np_(got.matches.indices), np_(want.matches.indices))
+    assert bool(got.success) and bool(want.success)
+    R_true, _ = _rel_pose(scene.poses[0], scene.poses[1])
+    for r in (got, want):
+        assert np.abs(np_(r.R) - R_true).max() < 0.02
+    np.testing.assert_allclose(np_(got.R), np_(want.R), atol=1e-3)
+    np.testing.assert_allclose(np_(got.t), np_(want.t), atol=1e-3)
+
+
+def test_bundle_adjust_on_card_matches_cpu():
+    """Dense window BA (6 x 128) and PCG BA (32 x 1,024) on the card and on
+    the CPU: cost traces within 1e-3 (the fp32 floor, 1e-7 of the start,
+    counting as equal), poses within 1e-3."""
+    from niftymatch_torch.utils.smoke_sfm import perturbed_problem
+
+    dev = cuda_device()
+    cases = [(nt.bundle_adjust, perturbed_problem(6, 128)[1],
+              nt.BAConfig(max_iterations=15, damping=1e-3)),
+             (nt.bundle_adjust_cg, perturbed_problem(32, 1024, noise_px=0.5, radius=8.0)[1],
+              nt.BAConfig(max_iterations=8, damping=1e-3, cg_iterations=40))]
+    for solve, problem, cfg in cases:
+        sg, stg = solve(problem, cfg, device=dev)
+        sc, stc = solve(problem, cfg, device="cpu")
+        a, b = np_(stg.costs), np_(stc.costs)
+        floor = 1e-4 * float(stc.initial_cost)
+        assert (np.abs(a - b) / np.maximum(np.maximum(a, b), floor)).max() <= 1e-3
+        assert float(stg.final_cost) < float(stg.initial_cost)
+        np.testing.assert_allclose(np_(sg.poses), np_(sc.poses), atol=1e-3)
+        np.testing.assert_array_equal(np_(sg.poses)[:2], np_(problem.poses)[:2])
+
+
+def test_pose_graphs_on_card_match_cpu():
+    """SE(3), Sim(3) with Huber and Sim(3)-CG on small graphs: the card's
+    costs within 1e-3 of the CPU's, poses within 1e-3."""
+    from niftymatch_torch.sfm import (
+        optimize_pose_graph,
+        optimize_pose_graph_sim3,
+        optimize_pose_graph_sim3_cg,
+    )
+    from niftymatch_torch.utils.smoke_sfm import se3_chain_graph, sim3_loop_graph
+
+    dev = cuda_device()
+    _, chain = se3_chain_graph(24)
+    _, loop = sim3_loop_graph(24, 1.03, anchors=[23])
+    runs = [(optimize_pose_graph, chain, dict(iterations=12, damping=1e-4)),
+            (optimize_pose_graph_sim3, loop, dict(iterations=20, damping=1e-4, huber_delta=1.0)),
+            (optimize_pose_graph_sim3_cg, loop, dict(iterations=20, damping=1e-4,
+                                                     cg_iterations=96))]
+    for opt, graph, kw in runs:
+        og, sg = opt(graph, **kw, device=dev)
+        oc, sc = opt(graph, **kw, device="cpu")
+        assert float(sg.final_cost) < 0.5 * float(sg.initial_cost)
+        np.testing.assert_allclose(np_(sg.costs), np_(sc.costs), rtol=1e-3, atol=1e-6)
+        np.testing.assert_allclose(np_(og.poses), np_(oc.poses), atol=1e-3)
+
+
+def test_sfm_phase_on_card():
+    """``chip_smoke.py``'s phase 7 at small sizes (its 7a at 640x480, the
+    size its bars are for): every check of each part holds."""
+    from niftymatch_torch.utils import smoke_sfm
+
+    dev = cuda_device()
+    smoke_sfm.two_view_phase(dev)
+    smoke_sfm.window_ba_phase(dev, sizes=((5, 1024),), reps=2)
+    smoke_sfm.global_ba_phase(dev, cams=64, landmarks=8192, obs_per_cam=1024,
+                              check_jax_costs=False)
+    smoke_sfm.pose_graph_phase(dev, dense_nodes=48, cg_nodes=240, reps=1)

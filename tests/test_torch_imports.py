@@ -20,6 +20,8 @@ MODULES = [
     "niftymatch_torch",
     "niftymatch_torch.config",
     "niftymatch_torch.convert",
+    "niftymatch_torch.data",
+    "niftymatch_torch.data.synthetic",
     "niftymatch_torch.features",
     "niftymatch_torch.geometry",
     "niftymatch_torch.geometry.fivepoint",
@@ -42,9 +44,22 @@ MODULES = [
     "niftymatch_torch.ops.patches",
     "niftymatch_torch.ops.pyramid",
     "niftymatch_torch.ops.warp",
+    "niftymatch_torch.sfm",
+    "niftymatch_torch.sfm.ba",
+    "niftymatch_torch.sfm.ba_cg",
+    "niftymatch_torch.sfm.homography",
+    "niftymatch_torch.sfm.posegraph",
+    "niftymatch_torch.sfm.se3",
+    "niftymatch_torch.sfm.sim3",
+    "niftymatch_torch.sfm.triangulation",
+    "niftymatch_torch.sfm.two_view_refine",
     "niftymatch_torch.sift",
+    "niftymatch_torch.slam",
+    "niftymatch_torch.slam.frontend",
     "niftymatch_torch.utils",
+    "niftymatch_torch.utils.metrics",
     "niftymatch_torch.utils.precision",
+    "niftymatch_torch.utils.smoke_sfm",
     "chip_smoke",
 ]
 
