@@ -63,11 +63,35 @@ Phases (any failed check raises, so the script exits non-zero):
      within 0.2); then ms per call of each, 7c's wall time, M
      obs-updates/s and peak memory, and the launches, device ms and host
      syncs of one ``estimate_two_view`` and of one LM iteration (7b, 7c)
-     from ``torch.profiler``.
+     from ``torch.profiler``;
+  8. SLAM tracking on the card (``niftymatch_torch/utils/smoke_slam.py``):
+     (8a) ``SlamSystem.process_features`` and ``process_features_batch`` on
+     ``make_feature_sequence`` (8 cameras, 400 landmarks, 384 slots,
+     ``RansacConfig(512, 4.0)``, window BA every 3 keyframes over 4) with
+     one injected RANSAC draw, card against CPU (keyframe flags, inlier
+     counts and track ids equal, trajectory within 5e-3 after a Sim(3)
+     alignment, room for one borderline RANSAC inlier that flips between
+     the two devices' fp32 refits at the gauge pair) and card against a
+     second card run (poses bit for bit); (8b) the SLAM loop of
+     ``bench.py::bench_slam_loop`` at full width: 113 rendered 640x480
+     uint8 frames through ``process_frames`` in chunks of 16, warm-up on
+     frames 0-32, frames 33-112 + ``flush_ba`` timed, with the launch
+     counts reset just before and read just after (K1 twice a frame plus 8
+     per relocalisation verify, K2 and K3 once a chunk): frames/s, the
+     accept fraction (>= the JAX package's 1.0 less 0.05), relocalisations,
+     inliers, the Sim(3) ATE against the scene (<= 1.5 x the JAX package's
+     0.198, ``tools/jax_slam_reference.py``), and one 16-frame chunk's
+     launches, kernels, device ms and host waits from ``torch.profiler``;
+     (8c) ``global_ba`` on 8b's map (applied, or rejected with its cost
+     above the start); (8d) a checkpoint of that map restored into a fresh
+     system (trajectory within 1e-6, the last track ids equal), which then
+     processes one more frame.
 
 Prints a ``{"geometry": ...}`` line, an ``{"sfm": ...}`` line, a
-``{"kernels": [...]}`` line, the nvidia-smi line, and as its last line
-``{"ok": true, "device": {...}}``.
+``{"slam": ...}`` line, a ``{"kernels": [...]}`` line (each kernel with
+its launches in phase 4 and, as ``slam_launches``, in 8b's timed run), the
+nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds.
 Exits non-zero with no result when CUDA is absent or the package is not
 beside the script.
 """
@@ -589,6 +613,8 @@ def main():
     pcfg = nt.PipelineConfig(sift=cfg)
     nt.utils.exact_fp32()
 
+    phase_s, t_phase = {}, time.perf_counter()   # seconds of each phase
+
     # -- 1. build -----------------------------------------------------------
     build_s = _build.build_all()
     smi = card_line()
@@ -598,6 +624,8 @@ def main():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}.cu: {line.strip()}")
+
+    phase_s["1"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 2. kernels against their plain versions, main-path inputs ----------
     images = chunk_images(0, dev)
@@ -663,6 +691,8 @@ def main():
     print("[kernels] k1 (fp32, bf16), k2 and k3: a second run equals the first "
           "bit for bit")
 
+    phase_s["2"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
     # -- 3. the pair path ---------------------------------------------------
     scene = make_scene(H, W, 0, 80, dev)
     run = nt.make_pair_pipeline(pcfg, device=dev)
@@ -674,6 +704,8 @@ def main():
     print(f"[pair] features {int(fa.count())} / {int(fb.count())}, matches "
           f"{int(matched.sum())}, median dx {med:.4f} (expect -5)")
     assert matched.sum() > MIN_PAIR_MATCHES and abs(med + 5.0) <= 0.01, "pair path is wrong"
+
+    phase_s["3"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 4. the batch path (the main path whose launches are counted) ------
     def pair_chunk(imgs):
@@ -736,6 +768,8 @@ def main():
                    - getattr(fc, field).numpy()[vc][oc]).max()
         assert d <= tol, f"card vs CPU {field} differs by {d}"
     print(f"[batch] 96x128 on the card equals the CPU run ({int(vg.sum())} features)")
+
+    phase_s["4"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 5. times -----------------------------------------------------------
     chunks = [chunk_images(1000 + 100 * c, dev)
@@ -825,20 +859,36 @@ def main():
               f"{bd[0]:.4f} ms ({bd[1]}: {bd[2]} bytes, {bd[3]} ops)"
               + (f", library {lib:.4f} ms" if lib is not None else ""))
 
+    phase_s["5"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
     # -- 6. geometry and mosaic --------------------------------------------
     geometry = quick_start(nt, fa, fb, mres, dev)
     geometry["ransac"] = every_model(nt, dev)
     geometry["mosaic"] = mosaic_phase(nt, dev)
     geometry.update(per_octave_phase(nt, scene[:H, :W], cfg, dev))
 
+    phase_s["6"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
     # -- 7. the SfM back-end -----------------------------------------------
     from niftymatch_torch.utils import smoke_sfm
 
     sfm = smoke_sfm.run(dev)
+    phase_s["7"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
+    # -- 8. SLAM tracking ---------------------------------------------------
+    from niftymatch_torch.utils import smoke_slam
+
+    slam = smoke_slam.run(dev)
+    slam_launches = slam["loop"]["timed_launches"]
+    for name in ("k1_match_top2", "k2_orientation_hist", "k3_descriptor"):
+        assert slam_launches[name] > 0, f"{name} did not run in the SLAM loop"
+    phase_s["8"] = time.perf_counter() - t_phase
+    print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     def row(key, name, source, replaces, ms, plain, lib):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
+                "slam_launches": slam_launches[name],
                 "max_abs_err": errs[key], "ms": ms, "plain_ms": plain,
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                 "library_ms": lib}
@@ -865,6 +915,7 @@ def main():
                               "k3_adding_pixels": bounds["k3"][4]}}))
     print(json.dumps({"geometry": geometry}))
     print(json.dumps({"sfm": sfm}))
+    print(json.dumps({"slam": slam}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ package's three TPU kernels rewritten as hand-written CUDA kernels
 (``kernels/``, sources in ``csrc/``); RANSAC geometry (``geometry/``),
 warping (``ops/warp.py``), mosaicking (``mosaic.py``), the SfM back-end
 (``sfm/``: SE(3)/Sim(3), triangulation, dense and PCG bundle adjustment,
-pose graphs), the two-view SLAM front end (``slam/frontend.py``) and
-synthetic scenes (``data/``) in plain PyTorch, as the JAX package writes
+pose graphs), SLAM tracking (``slam/``: the two-view front end, the
+keyframe store, ``SlamSystem`` with relocalisation, window and global BA;
+checkpoints in ``utils/checkpoint.py``) and synthetic scenes (``data/``)
+in plain PyTorch, as the JAX package writes
 them in plain ``jnp``.  The port imports ``torch`` and never ``jax`` or
 ``niftymatch_tpu``.  Entry points run on CUDA unless they are given
 ``device="cpu"``.
@@ -41,7 +43,7 @@ from .sift import (
     make_pair_pipeline,
     match_pair,
 )
-from .slam import estimate_two_view
+from .slam import SlamConfig, SlamSystem, estimate_two_view
 
 __all__ = [
     "BAConfig",
@@ -57,6 +59,8 @@ __all__ = [
     "RuntimeConfig",
     "SiftConfig",
     "Sim3Graph",
+    "SlamConfig",
+    "SlamSystem",
     "align_points",
     "bundle_adjust",
     "bundle_adjust_cg",

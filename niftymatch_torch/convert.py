@@ -1,8 +1,9 @@
 """Carry configs and feature sets across from the JAX package.
 
-The system has no weights; what carries across is the config tree, the
-``Features`` sets and the SfM state (bundle-adjustment problems and pose
-graphs).  These functions take plain Python and numpy data
+The system has no weights; what carries across is the config tree (SLAM's
+included), the ``Features`` sets and the SfM state (bundle-adjustment
+problems and pose graphs); SLAM map state carries across as a checkpoint
+(``utils/checkpoint.py``).  These functions take plain Python and numpy data
 (``dataclasses.asdict`` of a JAX-side config, ``numpy.asarray`` of each
 field of a ``Features`` or of a JAX NamedTuple's ``_asdict()``), so the
 port still imports nothing of the JAX package.
@@ -25,6 +26,7 @@ from .features import Features
 from .mosaic import MosaicConfig
 from .sfm.ba import BAProblem
 from .sfm.posegraph import PoseGraph, Sim3Graph
+from .slam.system import SlamConfig
 from .utils.precision import state_to
 
 
@@ -48,6 +50,17 @@ def mosaic_config_from_dict(d: dict) -> MosaicConfig:
     fields = dict(d)
     ransac = fields.pop("ransac", {})
     return MosaicConfig(**fields, ransac=RansacConfig(**ransac))
+
+
+def slam_config_from_dict(d: dict) -> SlamConfig:
+    """A port ``SlamConfig`` from ``dataclasses.asdict`` of a JAX one."""
+    fields = dict(d)
+    fields["ransac"] = RansacConfig(**fields.get("ransac", {}))
+    fields["ba"] = BAConfig(**fields.get("ba", {}))
+    fields["intrinsics"] = tuple(fields.get("intrinsics", SlamConfig.intrinsics))
+    if fields.get("distortion") is not None:
+        fields["distortion"] = tuple(fields["distortion"])
+    return SlamConfig(**fields)
 
 
 def features_from_numpy(arrays: dict, device="cpu") -> Features:

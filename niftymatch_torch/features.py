@@ -82,8 +82,8 @@ def concat_features(parts) -> Features:
 
 def topk_features(feats: Features, k: int) -> Features:
     """Global top-k by response (``features.py:82-92`` of the JAX package)."""
-    neg_inf = torch.tensor(float("-inf"), device=feats.response.device)
-    scores = torch.where(feats.valid, feats.response, neg_inf)
+    scores = torch.where(feats.valid, feats.response,
+                         torch.full_like(feats.response, float("-inf")))
     kk = min(k, scores.shape[-1])
     top_scores, idx = topk_desc_stable(scores, kk)
     out = feats.take(idx, torch.isfinite(top_scores))

@@ -165,8 +165,8 @@ def detect_keypoints(dog: torch.Tensor, octave: int, config: SiftConfig,
 
     k = config.max_keypoints_per_level
     lead = x.shape[:-2]                     # (..., L)
-    neg_inf = torch.tensor(float("-inf"), device=x.device)
-    flat_scores = torch.where(valid, resp, neg_inf).reshape(lead + (-1,))
+    flat_scores = torch.where(valid, resp, torch.full_like(resp, float("-inf")))
+    flat_scores = flat_scores.reshape(lead + (-1,))
     n = flat_scores.shape[-1]
     if n < k:
         flat_scores = torch.nn.functional.pad(flat_scores, (0, k - n),

@@ -5,10 +5,11 @@
   obs_valid): static shapes, masks instead of compaction.
 * Per-observation analytic Jacobians are computed batched; the block
   reductions (J^T J, J^T r) are exact per-segment sums keyed by camera,
-  landmark or (camera, landmark) pair: ``index_add_``, the counterpart of
-  ``jax.ops.segment_sum``.  On CUDA ``index_add_`` adds with float
-  atomics, so two runs may differ in the last bits of these sums (on the
-  CPU it adds in row order and is deterministic).
+  landmark or (camera, landmark) pair, the counterpart of
+  ``jax.ops.segment_sum``: the ids are sorted once per ``bundle_adjust``
+  call (``obs_cam``/``obs_lm`` do not change between LM iterations) and
+  each segment's rows are added in order by ``torch.segment_reduce``, so
+  two runs on the card give the same bits (no float atomics).
 * Landmark blocks are 3x3 and inverted by the adjugate; the reduced camera
   system S = H_cc - W H_ll^-1 W^T is one GEMM over landmarks and is solved
   densely (6C x 6C, C = window size) with ``torch.linalg.solve_ex``, which
@@ -127,18 +128,54 @@ class BAStats(NamedTuple):
     costs: torch.Tensor         # (iters,) accepted cost after each iteration
 
 
-def segment_sum(vals: torch.Tensor, ids: torch.Tensor, num: int) -> torch.Tensor:
-    """Exact per-segment sum of (O, ...) rows into (num, ...) by id, in any
-    order of ids (``index_add_``; float atomics on CUDA)."""
-    out = torch.zeros((num,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
-    return out.index_add_(0, ids, vals)
+class Segments(NamedTuple):
+    """Rows grouped by id for :func:`segment_sum`: ``perm`` puts the rows
+    in stable order of their ids, ``lengths`` counts each id's rows."""
+
+    perm: torch.Tensor      # (O,) int64
+    lengths: torch.Tensor   # (num,) int64
 
 
-def _solve_step(problem: BAProblem, lam: torch.Tensor, config: BAConfig):
-    """One damped GN solve: returns (dxi (C, 6), dX (L, 3))."""
+def sorted_segments(ids: torch.Tensor, num: int) -> Segments:
+    """The :class:`Segments` of ids in [0, num), in any order: a stable
+    sort and a left-side ``searchsorted`` of each segment's end (not
+    ``bincount``, which reads the largest id on the host on CUDA)."""
+    sorted_ids, perm = torch.sort(ids.long(), stable=True)
+    ends = torch.searchsorted(sorted_ids, torch.arange(1, num + 1, device=ids.device))
+    return Segments(perm=perm, lengths=torch.diff(ends, prepend=ends.new_zeros(1)))
+
+
+def segment_sum(vals: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """Exact per-segment sum of (O, ...) rows into (num, ...): each
+    segment's rows added in the order of ``seg.perm``, deterministic on
+    the card (no atomics); an empty segment sums to 0."""
+    return torch.segment_reduce(vals[seg.perm], "sum", lengths=seg.lengths,
+                                axis=0, unsafe=True)
+
+
+class BlockSegments(NamedTuple):
+    """The observations grouped by camera, by landmark and by (camera,
+    landmark) pair: fixed for a problem, so built once per solve."""
+
+    cam: Segments
+    lm: Segments
+    pair: Segments
+
+
+def block_segments(problem: BAProblem) -> BlockSegments:
+    C, L = problem.poses.shape[0], problem.landmarks.shape[0]
+    cam, lm = problem.obs_cam.long(), problem.obs_lm.long()
+    return BlockSegments(cam=sorted_segments(cam, C), lm=sorted_segments(lm, L),
+                         pair=sorted_segments(cam * L + lm, C * L))
+
+
+def _solve_step(problem: BAProblem, lam: torch.Tensor, config: BAConfig,
+                segs: BlockSegments | None = None):
+    """One damped GN solve: returns (dxi (C, 6), dX (L, 3)).  ``segs``:
+    the problem's :func:`block_segments`, built here when not given."""
     C = problem.poses.shape[0]
     L = problem.landmarks.shape[0]
-    cam, lm = problem.obs_cam.long(), problem.obs_lm.long()
+    segs = block_segments(problem) if segs is None else segs
 
     r, w, p, _ = residuals_and_weights(problem, config.huber_delta)
     J_c, J_l = _jacobians(problem, p)
@@ -148,12 +185,12 @@ def _solve_step(problem: BAProblem, lam: torch.Tensor, config: BAConfig):
     J_l = J_l * sw[..., None]
 
     # Block reductions (exact segment sums).
-    Hcc = segment_sum(torch.einsum("oij,oik->ojk", J_c, J_c), cam, C)      # (C, 6, 6)
-    Hll = segment_sum(torch.einsum("oij,oik->ojk", J_l, J_l), lm, L)       # (L, 3, 3)
-    W = segment_sum(torch.einsum("oij,oik->ojk", J_c, J_l), cam * L + lm,
-                    C * L).reshape(C, L, 6, 3)
-    b_c = -segment_sum(torch.einsum("oij,oi->oj", J_c, r_w), cam, C)       # (C, 6)
-    b_l = -segment_sum(torch.einsum("oij,oi->oj", J_l, r_w), lm, L)        # (L, 3)
+    Hcc = segment_sum(torch.einsum("oij,oik->ojk", J_c, J_c), segs.cam)    # (C, 6, 6)
+    Hll = segment_sum(torch.einsum("oij,oik->ojk", J_l, J_l), segs.lm)     # (L, 3, 3)
+    W = segment_sum(torch.einsum("oij,oik->ojk", J_c, J_l),
+                    segs.pair).reshape(C, L, 6, 3)
+    b_c = -segment_sum(torch.einsum("oij,oi->oj", J_c, r_w), segs.cam)     # (C, 6)
+    b_l = -segment_sum(torch.einsum("oij,oi->oj", J_l, r_w), segs.lm)      # (L, 3)
 
     # LM damping (additive, keeps unobserved blocks invertible).
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
@@ -224,5 +261,6 @@ def bundle_adjust(problem: BAProblem, config: BAConfig = BAConfig(),
     classic x0.5 / x4 schedule.  Runs on ``device`` (CUDA by default), to
     which the problem's fields are moved."""
     problem = state_to(problem, resolve_device(device))
+    segs = block_segments(problem)
     return lm_loop(problem, ba_cost(problem, config.huber_delta), config,
-                   lambda prob, lam: _solve_step(prob, lam, config))
+                   lambda prob, lam: _solve_step(prob, lam, config, segs))

@@ -5,13 +5,14 @@ Fixed-shape edge table (i, j, measurement, weight, valid); edge Jacobians
 by forward-mode autodiff (``torch.func.vmap(torch.func.jacfwd(...))`` over
 edges, as the JAX file's ``vmap(jacfwd(...))``: reverse mode would turn
 the inf of ``so3_log``'s discarded branches into NaN); dense damped normal
-equations (6N x 6N or 7N x 7N) assembled with ``index_put_(...,
-accumulate=True)`` on the (N, N, k, k) block tensor and solved with
+equations (6N x 6N or 7N x 7N) assembled from the per-edge blocks by exact
+segment sums (``ba.segment_sum``) over the (node, node) blocks and the
+nodes, whose ids are sorted once per call, and solved with
 ``torch.linalg.solve_ex``, or for large Sim(3) graphs a matrix-free block
-CG.  Every loop is a Python loop over a fixed count whose accept/reject,
-cost and damping stay on the device.  On CUDA the accumulating adds use
-atomics, so two runs may differ in the last bits.  Gauge fixed by a node
-mask.
+CG whose node sums are the same segment sums.  No sum adds with float
+atomics, so two runs on the card give the same bits.  Every loop is a
+Python loop over a fixed count whose accept/reject, cost and damping stay
+on the device.  Gauge fixed by a node mask.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from ..utils.precision import f32, resolve_device, state_to
+from .ba import Segments, segment_sum, sorted_segments
 from .se3 import se3_compose, se3_exp, se3_inverse, se3_log
 from .sim3 import sim3_compose, sim3_error, sim3_inverse, sim3_retract
 
@@ -107,19 +109,36 @@ def _edge_blocks(Ji, Jj, r, w):
     return Hii, Hjj, Hij, bi, bj
 
 
-def _dense_solve(ei, ej, blocks, node_fixed, lam, N: int, k: int):
+class EdgeSegments(NamedTuple):
+    """The edges' terms grouped for :func:`ba.segment_sum`: the 4E blocks
+    (Hii, Hjj, Hij, Hij^T) by (row, column) node pair, and the 2E
+    gradient terms (bi, bj) by node."""
+
+    blocks: Segments
+    nodes: Segments
+
+
+def edge_segments(ei: torch.Tensor, ej: torch.Tensor, N: int) -> EdgeSegments:
+    rows = torch.cat([ei, ej, ei, ej])
+    cols = torch.cat([ei, ej, ej, ei])
+    return EdgeSegments(blocks=sorted_segments(rows * N + cols, N * N),
+                        nodes=sorted_segments(torch.cat([ei, ej]), N))
+
+
+def _node_sum(vi: torch.Tensor, vj: torch.Tensor, nodes: Segments) -> torch.Tensor:
+    """(N, ...) sums of per-edge terms ``vi`` at node i and ``vj`` at j."""
+    return segment_sum(torch.cat([vi, vj]), nodes)
+
+
+def _dense_solve(segs: EdgeSegments, blocks, node_fixed, lam, N: int, k: int):
     """Assemble the dense damped kN x kN normal equations from per-edge
     blocks, pin fixed nodes to identity rows, solve: (N, k) step (zero on
     fixed nodes) and the (N, 1) free mask."""
     Hii, Hjj, Hij, bi, bj = blocks
     dtype, dev = Hii.dtype, Hii.device
-    H = torch.zeros((N, N, k, k), dtype=dtype, device=dev)
-    H.index_put_((ei, ei), Hii, accumulate=True)
-    H.index_put_((ej, ej), Hjj, accumulate=True)
-    H.index_put_((ei, ej), Hij, accumulate=True)
-    H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
-    b = torch.zeros((N, k), dtype=dtype, device=dev)
-    b.index_add_(0, ei, bi).index_add_(0, ej, bj)
+    H = segment_sum(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]),
+                    segs.blocks).reshape(N, N, k, k)
+    b = _node_sum(bi, bj, segs.nodes)
 
     Hd = H.permute(0, 2, 1, 3).reshape(k * N, k * N)
     Hd = Hd + (lam + 1e-8) * torch.eye(k * N, dtype=dtype, device=dev)
@@ -157,13 +176,13 @@ def optimize_pose_graph(graph: PoseGraph, iterations: int = 10, damping: float =
     ``device`` (CUDA by default), to which the graph is moved."""
     graph = state_to(graph, resolve_device(device))
     N = graph.poses.shape[0]
-    ei, ej = graph.edge_i.long(), graph.edge_j.long()
+    segs = edge_segments(graph.edge_i.long(), graph.edge_j.long(), N)
     w = _edge_weights(graph)
 
     def solve(state, lam):
         (poses,) = state
         r, Ji, Jj = _edge_linearization(graph._replace(poses=poses))
-        dxi = _dense_solve(ei, ej, _edge_blocks(Ji, Jj, r, w), graph.node_fixed,
+        dxi = _dense_solve(segs, _edge_blocks(Ji, Jj, r, w), graph.node_fixed,
                            lam, N, 6)
         return (se3_compose(se3_exp(dxi), poses),)
 
@@ -261,11 +280,11 @@ def optimize_pose_graph_sim3(graph: Sim3Graph, iterations: int = 12,
     iteration and the accept/reject cost uses the matching robust kernel."""
     graph = state_to(graph, resolve_device(device))
     N = graph.poses.shape[0]
-    ei, ej = graph.edge_i.long(), graph.edge_j.long()
+    segs = edge_segments(graph.edge_i.long(), graph.edge_j.long(), N)
 
     def step(scale, poses, lam):
         r, Ji, Jj, w = _sim3_linearization(graph, scale, poses, huber_delta)
-        return _dense_solve(ei, ej, _edge_blocks(Ji, Jj, r, w), graph.node_fixed,
+        return _dense_solve(segs, _edge_blocks(Ji, Jj, r, w), graph.node_fixed,
                             lam, N, 7)
 
     return _sim3_lm(graph, iterations, damping, huber_delta, step)
@@ -280,7 +299,7 @@ def optimize_pose_graph_sim3_cg(graph: Sim3Graph, iterations: int = 12,
     inner solve, for graphs too large for the dense (N, N, 7, 7) H.
 
     ``H @ x`` is applied edge-wise from the per-edge blocks (Hii, Hjj,
-    Hij) by gathers and ``index_add_``: O(E) memory, O(49 E) operations a
+    Hij) by gathers and exact node sums: O(E) memory, O(49 E) operations a
     CG step.  A block-Jacobi preconditioner (per-node 7x7 diagonal block,
     inverted once per outer iteration) keeps CG short on the near-chain
     graphs loop closure produces.  The outer loop is the dense path's."""
@@ -290,10 +309,10 @@ def optimize_pose_graph_sim3_cg(graph: Sim3Graph, iterations: int = 12,
     dtype, dev = graph.poses.dtype, graph.poses.device
     free = (~graph.node_fixed).to(dtype)[:, None]                # (N, 1)
     eye7 = torch.eye(7, dtype=dtype, device=dev)
+    nodes = sorted_segments(torch.cat([ei, ej]), N)
 
     def scatter(vi, vj):
-        out = torch.zeros((N,) + vi.shape[1:], dtype=dtype, device=dev)
-        return out.index_add_(0, ei, vi).index_add_(0, ej, vj)
+        return _node_sum(vi, vj, nodes)
 
     def step(scale, poses, lam):
         r, Ji, Jj, w = _sim3_linearization(graph, scale, poses, huber_delta)

@@ -1,20 +1,27 @@
-"""SLAM front end, two-view half: relative pose between two keyframes
-(``slam/frontend.py`` of the JAX package, ``TwoViewResult`` to
-``two_view_from_matches``).
+"""SLAM front end (``slam/frontend.py`` of the JAX package): the two-view
+estimate between keyframes (``TwoViewResult`` to ``two_view_from_matches``)
+and the per-frame tracking step built on it (``SlamStepResult`` to
+``triangulate_in_world``).
 
 Matching (K1 forward, and backward for the mutual check), then both
 E- and H-RANSAC on calibration-normalised correspondences, model selection
 by truncated transfer score, cheirality-voted pose recovery, a Gauss-Newton
-polish of the essential branch and triangulation.  Everything stays on
-the device: no call waits on the host.
+polish of the essential branch and triangulation.  ``slam_step`` adds the
+monocular scale, the pose composition and the triangulation at world
+poses; ``slam_chunk`` runs it over a batch of frames with the keyframe
+carry chosen on the device.  Everything stays on the device: no call waits
+on the host.
 
 The RANSAC draws: the JAX package runs E-RANSAC with ``key`` and
 H-RANSAC with ``fold_in(key, 1)``, or both from ``jax.random.key(seed)``
-(the same draw) when ``key`` is None.  A ``torch.Generator`` cannot
-reproduce ``jax.random``, so here the caller may pass the two draws as
-``scores_e`` / ``scores_h`` ((iterations, N) Gumbel noise each); a draw
-not given comes from one ``torch.Generator`` seeded with
-``ransac_config.seed``, shared by both models as in the JAX package.
+(the same draw) when ``key`` is None, which is what its ``slam_step``
+does on every frame.  A ``torch.Generator`` cannot reproduce
+``jax.random``, so here the caller may pass the two draws as
+``scores_e`` / ``scores_h`` ((iterations, N) Gumbel noise each), or to
+``slam_step`` / ``slam_chunk`` as one ``scores = (scores_e, scores_h)``
+pair; a draw not given comes from one ``torch.Generator`` seeded with
+``ransac_config.seed``, shared by both models as in the JAX package
+(``slam_chunk`` draws it once for all its frames).
 """
 
 from __future__ import annotations
@@ -31,11 +38,11 @@ from ..geometry.transforms import sampson_sq_error, transfer_sq_error
 from ..ops.gradients import div_const
 from ..ops.match import MatchResult, mutual_matches
 from ..sfm.homography import recover_pose_homography
-from ..sfm.se3 import hat
-from ..sfm.triangulation import _det3, recover_pose
+from ..sfm.se3 import hat, se3_apply, se3_compose
+from ..sfm.triangulation import _det3, depths, recover_pose, triangulate_dlt
 from ..sfm.two_view_refine import refine_relative_pose
 from ..sift import match_pair
-from ..utils.precision import f32, resolve_device
+from ..utils.precision import device_constant, f32, resolve_device
 
 
 class TwoViewResult(NamedTuple):
@@ -178,3 +185,182 @@ def two_view_from_matches(
         point_valid=pick(rec_h.cheirality, rec_e.cheirality) & inliers,
         success=success,
     )
+
+
+class SlamStepResult(NamedTuple):
+    """Everything the host bookkeeping needs from one SLAM frame, fetched
+    by the caller in one batch."""
+
+    indices: torch.Tensor       # (N,) match indices into the new frame
+    inliers: torch.Tensor       # (N,) bool
+    num_inliers: torch.Tensor   # () int32
+    success: torch.Tensor       # () bool
+    scale: torch.Tensor         # () float32 resolved monocular scale
+    pose: torch.Tensor          # (3, 4) world->cam pose of the new frame
+    points_w: torch.Tensor      # (N, 3) world points (A-slot aligned)
+    points_valid: torch.Tensor  # (N,) bool (mask & cheirality in both views)
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of ``values[mask]`` (numpy convention: mean of the two middle
+    elements for even counts), as a () tensor with no host read.  Returns
+    an arbitrary value when the mask is empty: guard at the call site."""
+    k = mask.sum(dtype=torch.int64).reshape(1)
+    s = torch.sort(torch.where(mask, values, torch.full_like(values, float("inf")))).values
+    lo = s.index_select(0, torch.clamp(torch.div(k - 1, 2, rounding_mode="floor"), min=0))
+    hi = s.index_select(0, torch.clamp(torch.div(k, 2, rounding_mode="floor"), min=0))
+    return (0.5 * (lo + hi))[0]
+
+
+def _draw_pair(scores, ransac_config: RansacConfig, n: int, dev):
+    """The (scores_e, scores_h) pair on ``dev``: ``scores`` as given, or
+    one draw from ``ransac_config.seed`` for both models."""
+    if scores is None:
+        drawn = _gumbel_scores(ransac_config.iterations, n, ransac_config.seed, dev)
+        return drawn, drawn
+    return tuple(device_constant(a, dev, torch.float32) for a in scores)
+
+
+def slam_step(
+    last_feats: Features,
+    feats: Features,
+    last_pose: torch.Tensor,
+    last_world: torch.Tensor,
+    has_track: torch.Tensor,
+    intrinsics: tuple[float, float, float, float],
+    ransac_config: RansacConfig,
+    min_scale_obs: int = 5,
+    scores=None,
+    device=None,
+) -> SlamStepResult:
+    """One SLAM frame on ``device`` (CUDA by default): the two-view
+    estimate against the last keyframe, the monocular scale from
+    re-observed landmarks, the pose composition and the triangulation of
+    the matches at the new world pose.
+
+    ``last_world``/``has_track`` are the stored landmark positions (N, 3)
+    and their liveness (N,) at the last keyframe's feature slots.  Scale:
+    the median over re-observed landmarks of (stored depth in the last
+    camera) / (unit-baseline triangulated depth), or 1 when fewer than
+    ``min_scale_obs`` ratios survive.  ``scores``: the (scores_e,
+    scores_h) RANSAC draws (see the module docstring)."""
+    dev = resolve_device(device)
+    scores_e, scores_h = (None, None) if scores is None else scores
+    tv = estimate_two_view(last_feats, feats, intrinsics, ransac_config,
+                           scores_e=scores_e, scores_h=scores_h, device=dev)
+    last_pose = device_constant(last_pose, dev, torch.float32)
+    last_world = device_constant(last_world, dev, torch.float32)
+    has_track = device_constant(has_track, dev, torch.bool)
+
+    d_world = se3_apply(last_pose, last_world)[:, 2]
+    d_unit = tv.points[:, 2]
+    ok = has_track & tv.point_valid & (d_unit > 1e-3) & (d_world > 1e-3)
+    ratios = d_world / torch.clamp(d_unit, min=1e-9)
+    scale = torch.where(ok.sum() >= min_scale_obs, masked_median(ratios, ok),
+                        torch.ones_like(ratios[0]))
+
+    T_rel = torch.cat([tv.R, (scale * tv.t)[:, None]], dim=-1)
+    pose = se3_compose(T_rel, last_pose)
+    pts_w, valid_w = triangulate_in_world(last_pose, pose, last_feats, feats,
+                                          tv.matches, intrinsics, device=dev)
+    return SlamStepResult(
+        indices=tv.matches.indices,
+        inliers=tv.inliers,
+        num_inliers=tv.num_inliers,
+        success=tv.success,
+        scale=scale,
+        pose=pose,
+        points_w=pts_w,
+        points_valid=valid_w,
+    )
+
+
+def slam_chunk(
+    last_feats: Features,
+    feats_batch: Features,
+    last_pose: torch.Tensor,
+    last_world: torch.Tensor,
+    has_track: torch.Tensor,
+    intrinsics: tuple[float, float, float, float],
+    ransac_config: RansacConfig,
+    min_inliers: int,
+    min_scale_obs: int = 5,
+    anchor_landmarks: bool = True,
+    scores=None,
+    device=None,
+) -> tuple[SlamStepResult, torch.Tensor]:
+    """B sequential SLAM frames (a leading batch axis on every field of
+    ``feats_batch``) with no host wait: the JAX package's ``lax.scan`` as a
+    loop over the frames.
+
+    The carry is the keyframe state (features, pose, per-slot world points,
+    per-slot track liveness).  An accepted frame (success and
+    ``min_inliers`` inliers) becomes the new carry keyframe; its world
+    context is the scatter of this frame's points into the slots its
+    matches landed in (track ids stay host business, applied once per chunk
+    from the batched fetch).  With ``anchor_landmarks`` a slot whose
+    A-side already carried a landmark keeps that landmark's position.  A
+    rejected frame leaves the carry untouched.  Every choice is a
+    ``torch.where`` on the device.
+
+    Returns (per-frame ``SlamStepResult`` stacked along a leading axis,
+    (B,) bool accepted)."""
+    dev = resolve_device(device)
+    carry = (Features(*[device_constant(a, dev) for a in last_feats]),
+             device_constant(last_pose, dev, torch.float32),
+             device_constant(last_world, dev, torch.float32),
+             device_constant(has_track, dev, torch.bool))
+    scores = _draw_pair(scores, ransac_config, carry[0].x.shape[-1], dev)
+    cap = carry[2].shape[0]
+    outs, accepts = [], []
+    for i in range(feats_batch.x.shape[0]):
+        feats_i = Features(*[a[i].to(dev) for a in feats_batch])
+        kf_feats, pose, world, has = carry
+        out = slam_step(kf_feats, feats_i, pose, world, has, intrinsics,
+                        ransac_config, min_scale_obs, scores=scores, device=dev)
+        accept = out.success & (out.num_inliers >= min_inliers)
+        matched = out.inliers & (out.indices >= 0)
+        if anchor_landmarks:
+            sel = matched & (has | out.points_valid)
+            carried = torch.where(has[:, None], world, out.points_w)
+        else:
+            sel = matched & out.points_valid
+            carried = out.points_w
+        # Scatter into a (cap + 1) buffer whose last row takes every
+        # unselected slot (the only duplicate target: mutual matches are
+        # one-to-one), then drop that row.
+        tgt = torch.where(sel, out.indices.long(), cap)
+        new_world = torch.zeros((cap + 1, 3), dtype=world.dtype, device=dev)
+        new_world = new_world.index_copy_(0, tgt, carried)[:cap]
+        new_has = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+        new_has = new_has.index_fill_(0, tgt, True)[:cap]
+        cand = (feats_i, out.pose, new_world, new_has)
+        carry = (Features(*[torch.where(accept, n, o) for n, o in zip(cand[0], kf_feats)]),
+                 *[torch.where(accept, n, o) for n, o in zip(cand[1:], carry[1:])])
+        outs.append(out)
+        accepts.append(accept)
+    return SlamStepResult(*[torch.stack(f) for f in zip(*outs)]), torch.stack(accepts)
+
+
+@f32
+def triangulate_in_world(
+    T_wa: torch.Tensor,
+    T_wb: torch.Tensor,
+    feats_a: Features,
+    feats_b: Features,
+    m: MatchResult,
+    intrinsics: tuple[float, float, float, float],
+    device=None,
+):
+    """Triangulate matched features given *world* poses of both cameras,
+    on ``device`` (CUDA by default).
+
+    Returns ((N, 3) world points, (N,) bool valid) aligned to A's slots."""
+    dev = resolve_device(device)
+    src, dst, mask = align_points(feats_a.x, feats_a.y, feats_b.x, feats_b.y,
+                                  m.indices, feats_a.valid, device=dev)
+    srcn = normalize_points(src, intrinsics)
+    dstn = normalize_points(dst, intrinsics)
+    pts = triangulate_dlt(T_wa, T_wb, srcn, dstn)
+    valid = mask & (depths(T_wa, pts) > 1e-3) & (depths(T_wb, pts) > 1e-3)
+    return pts, valid

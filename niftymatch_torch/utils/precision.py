@@ -57,6 +57,21 @@ def device_constant(values, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(values, dtype=dtype).to(device, non_blocking=True)
 
 
+def host_fetch(*tensors):
+    """numpy copies of ``tensors`` after ONE wait on the device: every
+    copy is queued without blocking (into pinned memory), then a single
+    event synchronisation waits for all of them, where a ``.cpu()`` each
+    would wait once per tensor."""
+    cuda = [t for t in tensors if t.device.type == "cuda"]
+    if not cuda:
+        return [t.detach().numpy() for t in tensors]
+    out = [t.detach().to("cpu", non_blocking=True) for t in tensors]
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(cuda[0].device))
+    done.synchronize()
+    return [t.numpy() for t in out]
+
+
 # Field names of the port's state tuples (``Features``, ``BAProblem``,
 # ``PoseGraph``, ``Sim3Graph``) that are not float32.
 _FIELD_DTYPES = dict(

@@ -77,8 +77,10 @@ def _port_frames(event):
 def profile(fn, dev, detail=False):
     """One call of ``fn`` under ``torch.profiler``: device kernels, copies
     and sets apart, summed device ms, and the host's waits on the device.
-    With ``detail``, also print the time by operator (largest first) and
-    each host wait with the port's frames that caused it."""
+    Counted from the raw trace events (building the profiler's event tree
+    takes minutes at the ~200,000 kernels of a SLAM chunk).  With
+    ``detail``, also print the time by operator (largest first) and each
+    host wait with the port's frames that caused it."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
@@ -86,19 +88,19 @@ def profile(fn, dev, detail=False):
     with tprofile(activities=acts, with_stack=detail) as prof:
         fn()
         _sync(dev)
-    events = prof.events()
-    gpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = sum(1 for e in gpu if e.name.startswith(("Memcpy", "Memset")))
-    waits = [e for e in events if e.name in _SYNC_EVENTS[dev.type]]
     if detail:
         sort = "cuda_time_total" if dev.type == "cuda" else "cpu_time_total"
         print(prof.key_averages().table(sort_by=sort, row_limit=25, max_name_column_width=60))
+        waits = [e for e in prof.events() if e.name in _SYNC_EVENTS[dev.type]]
         for (name, frames), n in Counter(
                 (e.name, " <- ".join(_port_frames(e))) for e in waits).most_common():
             print(f"  wait {n:5d} x {name}: {frames}")
+    raw = prof.profiler.kineto_results.events()
+    gpu = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for e in gpu if e.name().startswith(("Memcpy", "Memset")))
     return {"kernels": len(gpu) - copies, "copies_and_sets": copies,
-            "device_ms": sum(e.time_range.elapsed_us() for e in gpu) / 1e3,
-            "host_syncs": len(waits)}
+            "device_ms": sum(e.duration_ns() for e in gpu) / 1e6,
+            "host_syncs": sum(1 for e in raw if e.name() in _SYNC_EVENTS[dev.type])}
 
 
 def _per_iteration(one, two):

@@ -17,7 +17,10 @@ exceeds 2% (``tests/test_pallas_match.py:107-129``).  K1, K2 and K3 give
 the same bits on every run, and K2 the same bits for a keypoint in a batch
 as for the keypoint's image alone.  The SfM back-end on the card agrees
 with its CPU run (cost traces within 1e-3, poses within 1e-3) and passes
-``chip_smoke.py``'s phase 7 at small sizes.
+``chip_smoke.py``'s phase 7 at small sizes; dense BA and the pose graphs
+give the same bits on every run.  ``slam_step`` on the card agrees with
+its CPU run (matches, inliers and success equal, pose and world points
+within 1e-3) and the SLAM system passes phase 8a.
 """
 
 import dataclasses
@@ -633,3 +636,72 @@ def test_sfm_phase_on_card():
     smoke_sfm.global_ba_phase(dev, cams=64, landmarks=8192, obs_per_cam=1024,
                               check_jax_costs=False)
     smoke_sfm.pose_graph_phase(dev, dense_nodes=48, cg_nodes=240, reps=1)
+
+
+def test_ba_and_pose_graphs_rerun_bit_identical():
+    """Dense ``bundle_adjust`` and the SE(3), Sim(3) and Sim(3)-CG pose
+    graphs, each run twice on the card: the same bits (their sums are
+    sorted segment sums, no float atomics)."""
+    from niftymatch_torch.sfm import (
+        optimize_pose_graph,
+        optimize_pose_graph_sim3,
+        optimize_pose_graph_sim3_cg,
+    )
+    from niftymatch_torch.utils.smoke_sfm import (
+        perturbed_problem,
+        se3_chain_graph,
+        sim3_loop_graph,
+    )
+
+    dev = cuda_device()
+    problem = perturbed_problem(16, 4096, noise_px=0.5)[1]
+    cfg = nt.BAConfig(max_iterations=6, damping=1e-3, huber_delta=1.0)
+    runs = [nt.bundle_adjust(problem, cfg, device=dev) for _ in range(2)]
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+    _, chain = se3_chain_graph(64)
+    _, loop = sim3_loop_graph(64, 1.03, anchors=[63])
+    for opt, graph, kw in [(optimize_pose_graph, chain, dict(iterations=8)),
+                           (optimize_pose_graph_sim3, loop, dict(iterations=8, huber_delta=1.0)),
+                           (optimize_pose_graph_sim3_cg, loop, dict(iterations=8))]:
+        (ga, sa), (gb, sb) = (opt(graph, **kw, device=dev) for _ in range(2))
+        for a, b in zip(ga + sa, gb + sb):
+            assert torch.equal(a, b), opt.__name__
+
+
+def test_slam_step_on_card_matches_cpu():
+    """``slam_step`` with one injected draw: the card launches K1 twice and
+    gives the CPU's matches, inliers and success, and its pose and world
+    points within 1e-3."""
+    from niftymatch_torch.data import make_feature_sequence, make_scene
+    from niftymatch_torch.slam import slam_step
+
+    dev = cuda_device()
+    scene = make_scene(num_cams=3, num_landmarks=400, seed=0, radius=6.0)
+    feats = make_feature_sequence(scene, capacity=384, noise_px=0.5, seed=0)
+    intr = tuple(float(v) for v in scene.intrinsics)
+    cfg = nt.RansacConfig(iterations=512, inlier_threshold=4.0)
+    draw = np.random.default_rng(5).gumbel(size=(512, 384)).astype(np.float32)
+    pose = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
+    world, has = np.zeros((384, 3), np.float32), np.zeros(384, bool)
+    _build.reset_launches()
+    got = slam_step(feats[0], feats[1], pose, world, has, intr, cfg, scores=(draw, draw),
+                    device=dev)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k1_match_top2"] == 2
+    want = slam_step(feats[0], feats[1], pose, world, has, intr, cfg, scores=(draw, draw),
+                     device="cpu")
+    for name in ("indices", "inliers", "success", "num_inliers", "points_valid"):
+        np.testing.assert_array_equal(np_(getattr(got, name)), np_(getattr(want, name)))
+    assert bool(got.success) and int(got.num_inliers) > 300
+    np.testing.assert_allclose(np_(got.pose), np_(want.pose), atol=1e-3)
+    v = np_(want.points_valid)
+    np.testing.assert_allclose(np_(got.points_w)[v], np_(want.points_w)[v], atol=1e-3)
+
+
+def test_slam_parity_phase_on_card():
+    """``chip_smoke.py``'s phase 8a: ``SlamSystem`` per frame and chunked on
+    the card against the CPU and against a second card run."""
+    from niftymatch_torch.utils import smoke_slam
+
+    smoke_slam.parity_phase(cuda_device())

@@ -56,10 +56,17 @@ MODULES = [
     "niftymatch_torch.sift",
     "niftymatch_torch.slam",
     "niftymatch_torch.slam.frontend",
+    "niftymatch_torch.slam.globalba",
+    "niftymatch_torch.slam.keyframe",
+    "niftymatch_torch.slam.reloc",
+    "niftymatch_torch.slam.store",
+    "niftymatch_torch.slam.system",
     "niftymatch_torch.utils",
+    "niftymatch_torch.utils.checkpoint",
     "niftymatch_torch.utils.metrics",
     "niftymatch_torch.utils.precision",
     "niftymatch_torch.utils.smoke_sfm",
+    "niftymatch_torch.utils.smoke_slam",
     "chip_smoke",
 ]
 
