@@ -16,7 +16,12 @@ Phases (any failed check raises, so the script exits non-zero):
   2. hold each kernel (K1 match in fp32 and bf16, K2 orientation, K3
      descriptor) against its plain PyTorch version on the main path's own
      inputs, and K1, K2 and K3 against a second run of themselves (bit for
-     bit);
+     bit); and each of K4's nine fold variants (``kernels/fold.py``)
+     against its plain version and a second run of itself at both shapes
+     of the fold microbenchmark (16 pairs of 1024 x 128 and one pair of
+     4096 x 128 uniform descriptors, ``utils/smoke_fold.operands``), with
+     ``kernels.fold.agreement``'s tolerances, ``gemm`` and ``rowsum`` also
+     with their sums added to 0 (at 3.4e38 every sum reads 3.4e38);
   3. the pair path: a scene and the same scene shifted by 5 px, through
      ``make_pair_pipeline``: > 100 matches, median dx = -5.00 +- 0.01;
   4. the batch path: ``detect_and_describe_batch`` on 16 images and one
@@ -30,7 +35,12 @@ Phases (any failed check raises, so the script exits non-zero):
      (about 2 s) after 3 warm-up chunks, keyframes/s, each stage, and each
      kernel beside its plain version, its bound (the bytes and operations
      this run's keypoints need, K1's on the tensor cores) and (K1) one
-     library call computing the same function;
+     library call computing the same function; and K4's path, the fold
+     microbenchmark (``utils/smoke_fold.run``) at (k 1,024, nb 16) and
+     (k 4,096, nb 1), counted with the launch counts reset just before and
+     read just after: each variant's ms beside its bound, K1 bf16 on the
+     same operands, each variant's plain ms and, for ``current``, one
+     library call (bf16 ``baddbmm`` + ``topk``);
   6. geometry and mosaic on the card: phase 3's pair through
      ``align_points`` -> ``ransac(model="homography")`` at the defaults
      (2048 iterations, threshold 9, 2048 slots), H within 1 px of the
@@ -85,12 +95,28 @@ Phases (any failed check raises, so the script exits non-zero):
      (8c) ``global_ba`` on 8b's map (applied, or rejected with its cost
      above the start); (8d) a checkpoint of that map restored into a fresh
      system (trajectory within 1e-6, the last track ids equal), which then
-     processes one more frame.
+     processes one more frame;
+  9. SLAM loop closure on the card (``niftymatch_torch/utils/smoke_closure.py``):
+     (9a) the 12-keyframe closed loop of ``tests/test_slam_e2e.py`` on the
+     card and on the CPU with one injected draw (candidates equal up to
+     bf16 flips, edges equal, trajectories within 5e-3 after a Sim(3)
+     alignment, the test's bars on the card); (9b) the JAX package's 96-frame
+     golden closed loop (``benchmarks/ate_artifact.py``'s standard variant)
+     through ``process_frames``, ``close_loops``, ``global_ba`` and
+     ``finalize(rounds=2)``, its launches counted over the whole run: an
+     edge applied, the ATE falls with the closure and ends within 1.5x of
+     it and of the JAX package's 0.3936, the bf16 sweep within 2 of the
+     oracle at bf16 operand precision and within 2 % + 8 of the fp32
+     oracle (its differences printed, at most 5 % outside 2 % + 2), K1
+     bf16 once per live keyframe a sweep; the stage
+     times and one ``close_loops`` under ``torch.profiler``.
 
 Prints a ``{"geometry": ...}`` line, an ``{"sfm": ...}`` line, a
-``{"slam": ...}`` line, a ``{"kernels": [...]}`` line (each kernel with
-its launches in phase 4 and, as ``slam_launches``, in 8b's timed run), the
-nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
+``{"slam": ...}`` line, a ``{"closure": ...}`` line, a ``{"kernels": [...]}``
+line (K1-K3 with their launches in phase 4 and, as ``slam_launches`` and
+``closure_launches``, in 8b's timed run and 9b's whole run; each K4
+variant with its launches in phase 5's microbenchmark), the nvidia-smi
+line, and as its last line ``{"ok": true, "device": {...}}``.
 Each phase prints its seconds.
 Exits non-zero with no result when CUDA is absent or the package is not
 beside the script.
@@ -130,6 +156,8 @@ K2_OPS_PER_PIXEL = 13
 K3_OPS_PER_PIXEL = 29
 K3_OPS_PER_PAIR = 2
 K3_OPS_PER_BIN = 2
+# K4's shapes (k, pairs): benchmarks/fold_micro.py's defaults and its 4K file.
+K4_SHAPES = ((1024, 16), (4096, 1))
 
 
 def make_scene(h, w, seed, n_blobs, device):
@@ -290,6 +318,11 @@ def bound(nbytes, ops, ops_per_s=PEAK_FP32_PER_S):
     and which of the two it is."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_bound(nbytes, ops):
+    """``bound`` with the operations at the tensor cores' bf16 rate."""
+    return bound(nbytes, ops, PEAK_BF16_PER_S)
 
 
 # -- phase 6: geometry and mosaic ------------------------------------------
@@ -604,9 +637,11 @@ def main():
     import niftymatch_torch as nt
     from niftymatch_torch.features import Features
     from niftymatch_torch.kernels import _build
+    from niftymatch_torch.kernels import fold as k4
     from niftymatch_torch.kernels import match as k1
     from niftymatch_torch.kernels import windows as kw
     from niftymatch_torch.sift import describe_keypoints, keypoints_and_planes
+    from niftymatch_torch.utils import smoke_fold
 
     dev = torch.device("cuda")
     cfg = nt.SiftConfig(width=W, height=H)
@@ -622,7 +657,7 @@ def main():
     print(f"[build] kernels built in {build_s:.1f} s on {card}")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 print(f"[build] {name}.cu: {line.strip()}")
 
     phase_s["1"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -690,6 +725,31 @@ def main():
             assert agree > 0.999, "k1 bf16 disagrees"
     print("[kernels] k1 (fp32, bf16), k2 and k3: a second run equals the first "
           "bit for bit")
+
+    # K4 at both shapes of its path; gemm and rowsum also with their sums
+    # added to 0, since at 3.4e38 every sum reads 3.4e38.
+    for shape in K4_SHAPES:
+        ops4 = smoke_fold.operands(*shape, dev)
+        a_mat4, _, b_mat4, b_norm4 = ops4
+        d4 = k4.distances(a_mat4, b_mat4, b_norm4)
+        for v in k4.FOLDS:
+            for base in (k4.BIG, 0.0) if v in ("gemm", "rowsum") else (k4.BIG,):
+                got = k4.fold_variant(a_mat4, b_mat4, b_norm4, v, base=base)
+                again = k4.fold_variant(a_mat4, b_mat4, b_norm4, v, base=base)
+                want = k4.fold_variant_plain(a_mat4, b_mat4, b_norm4, v, base=base)
+                torch.cuda.synchronize()
+                assert all(torch.equal(u, w) for u, w in zip(got, again)), \
+                    f"k4 {v} (base {base:g}) at {shape} differs between two runs"
+                res = k4.agreement(v, got, want, d4, base=base)
+                key = k4.launch_name(v)
+                errs[key] = max(errs.get(key, 0.0), res["max_abs_err"])
+                print(f"[kernels] k4 {v} at k {shape[0]}, nb {shape[1]}, base {base:g}: "
+                      f"max abs err {res['max_abs_err']:.3e}, index exempt rows "
+                      f"{res['exempt_rows']} of {d4.shape[0] * d4.shape[1]}; a second run "
+                      f"equal bit for bit")
+                assert res["ok"], f"k4 {v} (base {base:g}) at {shape} disagrees: {res}"
+        del d4
+    a_mat4, _, b_mat4, b_norm4 = smoke_fold.operands(*K4_SHAPES[0], dev)
 
     phase_s["2"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
@@ -859,6 +919,32 @@ def main():
               f"{bd[0]:.4f} ms ({bd[1]}: {bd[2]} bytes, {bd[3]} ops)"
               + (f", library {lib:.4f} ms" if lib is not None else ""))
 
+    # K4's path: the fold microbenchmark at both shapes, its launches counted.
+    _build.reset_launches()
+    k4_rows = {shape: smoke_fold.run(*shape, graph_ms, bf16_bound, reps=reps, device=dev)
+               for shape in K4_SHAPES}
+    torch.cuda.synchronize()
+    k4_launches = dict(_build.K4_LAUNCHES)
+    for v in k4.FOLDS:
+        assert k4_launches[k4.launch_name(v)] > 0, f"k4 {v} did not run in its benchmark"
+    k4_plain = {v: cuda_ms(lambda: k4.fold_variant_plain(a_mat4, b_mat4, b_norm4, v), 3)
+                for v in k4.FOLDS}
+
+    def k4_library(a_mat, b_mat, b_norm):
+        # `current` in one call: bf16 baddbmm (distances in bf16) + topk.
+        d = torch.baddbmm(b_norm[:, None, :].to(a_mat.dtype), a_mat,
+                          b_mat.transpose(1, 2), alpha=-2.0)
+        return torch.topk(d, 2, dim=-1, largest=False)
+
+    k4_lib = graph_ms(lambda: k4_library(a_mat4, b_mat4, b_norm4), reps)
+    for shape, rows in k4_rows.items():
+        print(f"[time] k4 fold microbenchmark, k {shape[0]}, nb {shape[1]} "
+              f"(bound {rows[0]['bound_ms']:.5f} ms, {rows[0]['bound_by']}): " + ", ".join(
+                  f"{r['fold']} {r['ms']:.5f} ms ({r['pct_of_bound']:.1f} %, "
+                  f"+{r['us_over_rowsum']:.2f} us)" for r in rows))
+    print(f"[time] k4 plain ms at k 1024, nb 16: {k4_plain}; library (current: bf16 "
+          f"baddbmm + topk) {k4_lib:.5f} ms; launches {k4_launches}")
+
     phase_s["5"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 6. geometry and mosaic --------------------------------------------
@@ -882,16 +968,42 @@ def main():
     slam_launches = slam["loop"]["timed_launches"]
     for name in ("k1_match_top2", "k2_orientation_hist", "k3_descriptor"):
         assert slam_launches[name] > 0, f"{name} did not run in the SLAM loop"
-    phase_s["8"] = time.perf_counter() - t_phase
+    phase_s["8"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
+    # -- 9. SLAM loop closure ----------------------------------------------
+    from niftymatch_torch.utils import smoke_closure
+
+    closure = smoke_closure.run(dev)
+    closure_launches = closure["golden"]["launches"]
+    for name in ("k1_match_top2", "k1_match_top2_bf16", "k2_orientation_hist",
+                 "k3_descriptor"):
+        assert closure_launches[name] > 0, f"{name} did not run in the closed loop"
+    phase_s["9"] = time.perf_counter() - t_phase
     print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     def row(key, name, source, replaces, ms, plain, lib):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "slam_launches": slam_launches[name],
+                "closure_launches": closure_launches[name],
                 "max_abs_err": errs[key], "ms": ms, "plain_ms": plain,
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                 "library_ms": lib}
+
+    def k4_row(v):
+        at = {shape: next(r for r in rows if r["fold"] == v)
+              for shape, rows in k4_rows.items()}
+        main = at[K4_SHAPES[0]]
+        return {"name": k4.launch_name(v), "route": "cuda",
+                "source": "niftymatch_torch/csrc/fold_micro.cu",
+                "replaces": "benchmarks/fold_micro.py:59",
+                "launches": k4_launches[k4.launch_name(v)],
+                "max_abs_err": errs[k4.launch_name(v)], "ms": main["ms"],
+                "plain_ms": k4_plain[v], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": k4_lib if v == "current" else None,
+                "ms_k4096_nb1": at[K4_SHAPES[1]]["ms"],
+                "bound_ms_k4096_nb1": at[K4_SHAPES[1]]["bound_ms"]}
 
     kernels = [
         row("k1", "k1_match_top2", "niftymatch_torch/csrc/match.cu",
@@ -903,7 +1015,7 @@ def main():
             "niftymatch_tpu/pallas/windows.py:161", k2_ms, k2_plain, None),
         row("k3", "k3_descriptor", "niftymatch_torch/csrc/descriptors.cu",
             "niftymatch_tpu/pallas/windows.py:363", k3_ms, k3_plain, None),
-    ]
+    ] + [k4_row(v) for v in k4.FOLDS]
     print(json.dumps({"e2e": {"chunk_ms": chunk_ms, "keyframes_per_s": kf_s,
                               "host_chunk_ms": 1e3 * host_s / TIMED_CHUNKS,
                               "chunk_ms_median": float(np.median(chunk_times)),
@@ -912,10 +1024,13 @@ def main():
                               **stage, "k1_bf16_ms": k1_bf16_ms,
                               "valid_keypoints": n_valid,
                               "k2_adding_pixels": bounds["k2"][4],
-                              "k3_adding_pixels": bounds["k3"][4]}}))
+                              "k3_adding_pixels": bounds["k3"][4],
+                              "k4_fold_micro": {f"k{k}_nb{nb}": rows
+                                                for (k, nb), rows in k4_rows.items()}}}))
     print(json.dumps({"geometry": geometry}))
     print(json.dumps({"sfm": sfm}))
     print(json.dumps({"slam": slam}))
+    print(json.dumps({"closure": closure}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

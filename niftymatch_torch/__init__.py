@@ -1,15 +1,17 @@
 """NiftyMatch for PyTorch and CUDA: the port of ``niftymatch_tpu``.
 
-SIFT detection, description and matching on NVIDIA Hopper, with the JAX
-package's three TPU kernels rewritten as hand-written CUDA kernels
-(``kernels/``, sources in ``csrc/``); RANSAC geometry (``geometry/``),
-warping (``ops/warp.py``), mosaicking (``mosaic.py``), the SfM back-end
-(``sfm/``: SE(3)/Sim(3), triangulation, dense and PCG bundle adjustment,
-pose graphs), SLAM tracking (``slam/``: the two-view front end, the
-keyframe store, ``SlamSystem`` with relocalisation, window and global BA;
-checkpoints in ``utils/checkpoint.py``) and synthetic scenes (``data/``)
-in plain PyTorch, as the JAX package writes
-them in plain ``jnp``.  The port imports ``torch`` and never ``jax`` or
+SIFT detection, description and matching on NVIDIA Hopper, with the repo's
+four TPU kernels rewritten as hand-written CUDA kernels (``kernels/``,
+sources in ``csrc/``: K1-K3 on the system's paths, K4 the fold
+microbenchmark); RANSAC geometry (``geometry/``), warping
+(``ops/warp.py``), mosaicking (``mosaic.py``), the SfM back-end (``sfm/``:
+SE(3)/Sim(3), triangulation, dense and PCG bundle adjustment, pose
+graphs), keyframe SLAM (``slam/``: the two-view front end, the keyframe
+store, ``SlamSystem`` with relocalisation, window and global BA, loop
+closure and ``finalize``; checkpoints in ``utils/checkpoint.py``), the
+single-device all-pairs sweeps (``parallel/``) and synthetic scenes
+(``data/``) in plain PyTorch, as the JAX package writes them in plain
+``jnp``.  The port imports ``torch`` and never ``jax`` or
 ``niftymatch_tpu``.  Entry points run on CUDA unless they are given
 ``device="cpu"``.
 """
@@ -43,13 +45,14 @@ from .sift import (
     make_pair_pipeline,
     match_pair,
 )
-from .slam import SlamConfig, SlamSystem, estimate_two_view
+from .slam import LoopCloser, SlamConfig, SlamSystem, estimate_two_view
 
 __all__ = [
     "BAConfig",
     "BAProblem",
     "CompatFlags",
     "Features",
+    "LoopCloser",
     "MatchConfig",
     "MatchResult",
     "PipelineConfig",

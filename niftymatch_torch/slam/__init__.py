@@ -1,8 +1,8 @@
 """Keyframe SLAM (``slam/`` of the JAX package): the front end (two-view
 estimate, ``slam_step``, ``slam_chunk``), the keyframe store, the tracking
-system with relocalisation and window BA, and global BA.  Loop closure is
-still to port."""
+system with relocalisation and window BA, loop closure and global BA."""
 
+from .closure import LoopCloser, VerifiedCandidates
 from .frontend import (
     SlamStepResult,
     TwoViewResult,
@@ -22,11 +22,13 @@ from .system import SlamConfig, SlamSystem
 __all__ = [
     "FeatureStore",
     "Keyframe",
+    "LoopCloser",
     "Relocalizer",
     "SlamConfig",
     "SlamStepResult",
     "SlamSystem",
     "TwoViewResult",
+    "VerifiedCandidates",
     "estimate_two_view",
     "masked_median",
     "normalize_points",

@@ -16,8 +16,10 @@ re-observed landmarks) -> triangulation -> track-id propagation ->
 (every ``ba_every`` keyframes) sliding-window BA.  After ``reloc_after``
 rejected frames the relocaliser (``reloc.py``) queries older keyframes.
 
-Loop closure (``closer``) is not ported yet: it is None, and
-``globalba.run_global_ba``'s loop-edge guard skips itself.
+Loop closure (``closure.py``, ``closer``): an all-pairs sweep of the
+keyframes' match counts proposes candidate pairs, verified closures become
+Sim(3) pose-graph edges, and the optimised graph redistributes the drift;
+``finalize`` alternates closure with global BA.
 
 The RANSAC draw: one (scores_e, scores_h) pair serves every frame and
 every relocalisation verify (the JAX package reuses the draw of
@@ -40,6 +42,7 @@ from ..sfm.ba import BAProblem, bundle_adjust
 from ..sfm.se3 import se3_identity
 from ..sift import detect_and_describe, detect_and_describe_batch
 from ..utils.precision import device_constant, host_fetch, resolve_device
+from .closure import LoopCloser
 from .frontend import _draw_pair, slam_chunk, slam_step
 from .globalba import run_global_ba
 from .keyframe import Keyframe
@@ -49,8 +52,7 @@ from .store import FeatureStore
 
 @dataclasses.dataclass
 class SlamConfig:
-    """The JAX package's ``SlamConfig``, field for field (the loop-closure
-    fields are carried for ``convert`` and used once closure is ported)."""
+    """The JAX package's ``SlamConfig``, field for field."""
 
     width: int = 640
     height: int = 480
@@ -67,6 +69,10 @@ class SlamConfig:
     max_obs: int = 8192         # BA observation capacity (fixed shape)
     ba_landmarks_cap: int = 1024  # window-BA landmark capacity (fixed shape)
     detector_features: int = 1024
+    # Loop closure: candidate pairs need >= loop_min_matches mutual matches
+    # between keyframes >= loop_min_gap apart; verified closures enter the
+    # pose graph with loop_weight against 1.0 for odometry.  Candidates are
+    # verified loop_verify_batch at a time, at most max_loop_candidates.
     loop_min_gap: int = 3
     loop_min_matches: int = 50
     loop_weight: float = 10.0
@@ -76,6 +82,9 @@ class SlamConfig:
     # the last reloc_window keyframes and a sample of older ones.
     reloc_after: int = 2
     reloc_window: int = 6
+    # Temporal non-max suppression of loop candidates on the (i, j) grid
+    # before verification, and the cap on loop edges (the best-verified)
+    # after it; 0 disables either.
     loop_candidate_nms: int = 2
     loop_max_edges: int = 32
     # Re-observed tracks keep their stored (BA-refined) positions instead
@@ -114,7 +123,7 @@ class SlamSystem:
         self.track_positions = np.zeros((config.max_tracks, 3), np.float32)
         self.track_alive = np.zeros((config.max_tracks,), bool)
         self._frames_since_ba = 0
-        self.closer = None
+        self.closer = LoopCloser(self)
         self.reloc = Relocalizer(self)
 
     def scores(self, feats: Features):
@@ -458,6 +467,35 @@ class SlamSystem:
         out_poses = torch.where(improved, solved.poses, p.poses)
         lms = torch.where(improved, solved.landmarks, p.landmarks)
         return out_poses, lms, stats
+
+    # ------------------------------------------------------------------
+    # Loop closure and finalisation (closure.py, globalba.py)
+    # ------------------------------------------------------------------
+    @property
+    def last_closure_stages(self) -> dict:
+        """Per-stage seconds and diagnostics of the latest
+        :meth:`close_loops`."""
+        return self.closer.last_stages
+
+    def match_keyframes(self, pairs) -> np.ndarray:
+        """Mutual ratio-test match indices for keyframe index pairs (see
+        :meth:`.closure.LoopCloser.match_keyframes`)."""
+        return self.closer.match_keyframes(pairs)
+
+    def detect_loop_candidates(self, return_matches: bool = False):
+        """Candidate loop pairs from the all-pairs sweep (see
+        :meth:`.closure.LoopCloser.detect_candidates`)."""
+        return self.closer.detect_candidates(return_matches)
+
+    def close_loops(self) -> int:
+        """One loop-closure pass (see
+        :meth:`.closure.LoopCloser.close_loops`)."""
+        return self.closer.close_loops()
+
+    def finalize(self, rounds: int = 3) -> dict:
+        """Monotone closure <-> global-BA alternation (see
+        :meth:`.closure.LoopCloser.finalize`)."""
+        return self.closer.finalize(rounds)
 
     def global_ba(self, ba_config: BAConfig | None = None, use_cg: bool | None = None,
                   max_landmarks: int | None = None) -> bool:

@@ -28,11 +28,13 @@ def test_library_name_follows_source_and_headers(csrc_copy, name):
     other = next(n for n in _build.SOURCES if n != name)
     (csrc_copy / f"{other}.cu").write_text("// another kernel\n")
     assert _build._lib_path(name) == before
-    header = csrc_copy / "window_geometry.cuh"
-    includes = '#include "window_geometry.cuh"' in (csrc_copy / f"{name}.cu").read_text()
-    header.write_text(header.read_text() + "\n// edited\n")
-    after_header = _build._lib_path(name)
-    assert (after_header != before) == includes
+    after_header = before
+    for header in sorted(csrc_copy.glob("*.cuh")):
+        includes = f'#include "{header.name}"' in (csrc_copy / f"{name}.cu").read_text()
+        header.write_text(header.read_text() + "\n// edited\n")
+        edited = _build._lib_path(name)
+        assert (edited != after_header) == includes, header.name
+        after_header = edited
     (csrc_copy / f"{name}.cu").write_text("// edited\n")
     assert _build._lib_path(name) not in (before, after_header)
 
@@ -58,9 +60,11 @@ def test_every_kernel_has_a_counter_and_flags():
     assert _build.EXTRA_FLAGS["windows"] == ["-fmad=false"]
     assert set(_build.LAUNCHES) == {"k1_match_top2", "k1_match_top2_bf16",
                                     "k2_orientation_hist", "k3_descriptor"}
+    assert set(_build.K4_LAUNCHES) == {f"k4_fold_{f}" for f in _build.K4_FOLDS}
     _build.LAUNCHES["k3_descriptor"] = 3
+    _build.K4_LAUNCHES["k4_fold_pipe"] = 2
     _build.reset_launches()
-    assert not any(_build.LAUNCHES.values())
+    assert not any(_build.LAUNCHES.values()) and not any(_build.K4_LAUNCHES.values())
 
 
 @pytest.mark.parametrize("products,rate,nbytes,want_ms", [

@@ -20,7 +20,12 @@ with its CPU run (cost traces within 1e-3, poses within 1e-3) and passes
 ``chip_smoke.py``'s phase 7 at small sizes; dense BA and the pose graphs
 give the same bits on every run.  ``slam_step`` on the card agrees with
 its CPU run (matches, inliers and success equal, pose and world points
-within 1e-3) and the SLAM system passes phase 8a.
+within 1e-3) and the SLAM system passes phase 8a.  K4's nine fold
+variants agree with their plain versions under ``kernels.fold.agreement``
+and give the same bits on every run; the all-pairs sweep in bf16 lies
+within 2 % + 2 of the fp32 oracle's counts (ratio tests that flip within
+bf16 noise), in fp32 within 2 (a tie broken in another order); loop
+closure passes phase 9a.
 """
 
 import dataclasses
@@ -31,6 +36,7 @@ import torch
 
 import niftymatch_torch as nt
 from niftymatch_torch.kernels import _build
+from niftymatch_torch.kernels import fold as tf
 from niftymatch_torch.kernels import match as tk
 from niftymatch_torch.kernels import windows as tw
 from niftymatch_torch.sift import keypoints_and_planes
@@ -705,3 +711,76 @@ def test_slam_parity_phase_on_card():
     from niftymatch_torch.utils import smoke_slam
 
     smoke_slam.parity_phase(cuda_device())
+
+
+# --- K4, the all-pairs sweep and loop closure on the card ------------------
+
+
+@pytest.mark.parametrize("k,nb", [(1024, 16), (4096, 1), (2048, 2)])
+@pytest.mark.parametrize("fold", tf.FOLDS)
+def test_k4_matches_plain(fold, k, nb):
+    """Each fold variant against its plain version (``kernels.fold.
+    agreement``'s tolerances) and against a second run, bit for bit, at
+    the fold microbenchmark's two shapes and one between them."""
+    from niftymatch_torch.utils import smoke_fold
+
+    dev = cuda_device()
+    a_mat, _, b_mat, b_norm = smoke_fold.operands(k, nb, dev)
+    _build.reset_launches()
+    got = tf.fold_variant(a_mat, b_mat, b_norm, fold)
+    again = tf.fold_variant(a_mat, b_mat, b_norm, fold)
+    torch.cuda.synchronize()
+    assert _build.K4_LAUNCHES[tf.launch_name(fold)] == 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    want = tf.fold_variant_plain(a_mat, b_mat, b_norm, fold)
+    res = tf.agreement(fold, got, want, tf.distances(a_mat, b_mat, b_norm))
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("k,nb", [(1024, 16), (4096, 1)])
+@pytest.mark.parametrize("fold", ["gemm", "rowsum"])
+def test_k4_consume_only_sums(fold, k, nb):
+    """``gemm`` and ``rowsum`` with their sums added to 0, not 3.4e38 (which
+    hides every sum), against the plain sums within 1e-4 relative."""
+    from niftymatch_torch.utils import smoke_fold
+
+    dev = cuda_device()
+    a_mat, _, b_mat, b_norm = smoke_fold.operands(k, nb, dev)
+    got = tf.fold_variant(a_mat, b_mat, b_norm, fold, base=0.0)
+    want = tf.fold_variant_plain(a_mat, b_mat, b_norm, fold, base=0.0)
+    assert bool((got[0] < -1.0).all())   # -2 a.b summed: a, b in [0, 1)
+    res = tf.agreement(fold, got, want, tf.distances(a_mat, b_mat, b_norm), base=0.0)
+    assert res["ok"], res
+
+
+def test_allpairs_fused_bf16_on_card_matches_cpu_oracle():
+    """The closure sweep's bf16 K1 launches (one per keyframe) against the
+    fp32 oracle on the CPU: every count within 2 % + 2; in fp32 the fused
+    sweep gives the oracle's counts."""
+    from niftymatch_torch.parallel import allpairs_match, allpairs_match_fused
+
+    dev = cuda_device()
+    rng = np.random.default_rng(5)
+    pool = rng.random((1500, 128)).astype(np.float32)
+    desc = np.stack([pool[rng.choice(1500, 1024, replace=False)]
+                     + rng.normal(0, 0.03, (1024, 128)).astype(np.float32)
+                     for _ in range(10)])
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    valid = rng.random((10, 1024)) > 0.1
+    d, v = torch.from_numpy(desc), torch.from_numpy(valid)
+    want = allpairs_match(d, v, ambiguity=0.7, mutual=True).counts.numpy()
+    _build.reset_launches()
+    got = np_(allpairs_match_fused(d.to(dev), v.to(dev), ambiguity=0.7, mutual=True,
+                                   precision="bf16").counts)
+    assert _build.LAUNCHES["k1_match_top2_bf16"] == 10
+    assert (np.abs(got - want) <= 0.02 * want + 2).all()
+    fp32 = np_(allpairs_match_fused(d.to(dev), v.to(dev), ambiguity=0.7, mutual=True).counts)
+    assert np.abs(fp32 - want).max() <= 2
+
+
+def test_closure_parity_phase_on_card():
+    """``chip_smoke.py``'s phase 9a: the 12-keyframe loop's closure on the
+    card against the CPU, and the test's bars."""
+    from niftymatch_torch.utils import smoke_closure
+
+    smoke_closure.parity_phase(cuda_device())

@@ -30,6 +30,7 @@ MODULES = [
     "niftymatch_torch.geometry.transforms",
     "niftymatch_torch.kernels",
     "niftymatch_torch.kernels._build",
+    "niftymatch_torch.kernels.fold",
     "niftymatch_torch.kernels.match",
     "niftymatch_torch.kernels.windows",
     "niftymatch_torch.mosaic",
@@ -44,6 +45,8 @@ MODULES = [
     "niftymatch_torch.ops.patches",
     "niftymatch_torch.ops.pyramid",
     "niftymatch_torch.ops.warp",
+    "niftymatch_torch.parallel",
+    "niftymatch_torch.parallel.matching",
     "niftymatch_torch.sfm",
     "niftymatch_torch.sfm.ba",
     "niftymatch_torch.sfm.ba_cg",
@@ -55,6 +58,7 @@ MODULES = [
     "niftymatch_torch.sfm.two_view_refine",
     "niftymatch_torch.sift",
     "niftymatch_torch.slam",
+    "niftymatch_torch.slam.closure",
     "niftymatch_torch.slam.frontend",
     "niftymatch_torch.slam.globalba",
     "niftymatch_torch.slam.keyframe",
@@ -65,6 +69,8 @@ MODULES = [
     "niftymatch_torch.utils.checkpoint",
     "niftymatch_torch.utils.metrics",
     "niftymatch_torch.utils.precision",
+    "niftymatch_torch.utils.smoke_closure",
+    "niftymatch_torch.utils.smoke_fold",
     "niftymatch_torch.utils.smoke_sfm",
     "niftymatch_torch.utils.smoke_slam",
     "chip_smoke",
