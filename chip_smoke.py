@@ -109,14 +109,33 @@ Phases (any failed check raises, so the script exits non-zero):
      oracle at bf16 operand precision and within 2 % + 8 of the fp32
      oracle (its differences printed, at most 5 % outside 2 % + 2), K1
      bf16 once per live keyframe a sweep; the stage
-     times and one ``close_loops`` under ``torch.profiler``.
+     times and one ``close_loops`` under ``torch.profiler``;
+ 10. the multi-device layer and the dataset path: (10d,
+     ``niftymatch_torch/utils/smoke_dataset.py``) 8b's 113 frames written
+     as a TUM RGB-D and an EuRoC directory and run from disk through the
+     native loader into ``process_frames`` (8b's poses bit for bit, its
+     ATE within 1e-6 from the groundtruth file, the EuRoC frames equal,
+     the loader's frames/s, one short chunk under ``utils.profiling.trace``);
+     (10a-10c, ``niftymatch_torch/utils/smoke_parallel.py``) at world 1 on
+     NCCL in this process and world 2 on gloo in two spawned processes on
+     ``cuda:0``: ``shard_detect`` of phase 2's 16 frames and the ring over
+     their 16 x 2,048 descriptors and over 9b's keyframe store (world 2
+     equal to world 1 bit for bit; against the fp32 oracle every differing
+     row one whose ratio test fp32 noise decides; K1 fp32 launches per
+     sweep; ms per sweep in each mode; a roofline report), distributed
+     PCG BA on 7c's problem and dense BA on 7b's 16 x 4,096 window (world 1
+     bit for bit the single-device solvers', world 2 within its bars), and
+     9a's loop with its sweep through the ring.
 
 Prints a ``{"geometry": ...}`` line, an ``{"sfm": ...}`` line, a
-``{"slam": ...}`` line, a ``{"closure": ...}`` line, a ``{"kernels": [...]}``
-line (K1-K3 with their launches in phase 4 and, as ``slam_launches`` and
-``closure_launches``, in 8b's timed run and 9b's whole run; each K4
-variant with its launches in phase 5's microbenchmark), the nvidia-smi
-line, and as its last line ``{"ok": true, "device": {...}}``.
+``{"slam": ...}`` line, a ``{"closure": ...}`` line, a ``{"parallel": ...}``
+line, a ``{"dataset": ...}`` line, a ``{"kernels": [...]}`` line (K1-K3
+with their launches in phase 4 and, as ``slam_launches``,
+``closure_launches``, ``ring_launches`` and ``dataset_launches``, in 8b's
+timed run, 9b's whole run, 10a's world-1 path (``shard_detect`` and one
+mutual ring sweep) and 10d's run from disk; each K4 variant with its
+launches in phase 5's microbenchmark), the nvidia-smi line, and as its
+last line ``{"ok": true, "device": {...}}``.
 Each phase prints its seconds.
 Exits non-zero with no result when CUDA is absent or the package is not
 beside the script.
@@ -964,7 +983,7 @@ def main():
     # -- 8. SLAM tracking ---------------------------------------------------
     from niftymatch_torch.utils import smoke_slam
 
-    slam = smoke_slam.run(dev)
+    slam, clip_8b = smoke_slam.run(dev)
     slam_launches = slam["loop"]["timed_launches"]
     for name in ("k1_match_top2", "k2_orientation_hist", "k3_descriptor"):
         assert slam_launches[name] > 0, f"{name} did not run in the SLAM loop"
@@ -973,12 +992,24 @@ def main():
     # -- 9. SLAM loop closure ----------------------------------------------
     from niftymatch_torch.utils import smoke_closure
 
-    closure = smoke_closure.run(dev)
+    closure, store_9b, cfg_9b = smoke_closure.run(dev)
     closure_launches = closure["golden"]["launches"]
     for name in ("k1_match_top2", "k1_match_top2_bf16", "k2_orientation_hist",
                  "k3_descriptor"):
         assert closure_launches[name] > 0, f"{name} did not run in the closed loop"
-    phase_s["9"] = time.perf_counter() - t_phase
+    phase_s["9"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
+
+    # -- 10. the multi-device layer and the dataset path -------------------
+    from niftymatch_torch.utils import smoke_dataset, smoke_parallel
+
+    dataset, dataset_launches = smoke_dataset.run(
+        dev, clip_8b["frames"], clip_8b["scene"], clip_8b["config"], clip_8b["poses"],
+        clip_8b["ate"], clip_8b["warmup"])
+    parallel, ring_launches = smoke_parallel.run(dev, images, store_9b,
+                                                 cfg_9b.loop_min_matches, cfg_9b.loop_min_gap)
+    for name in ("k1_match_top2", "k2_orientation_hist", "k3_descriptor"):
+        assert ring_launches[name] > 0, f"{name} did not run on the ring's path"
+    phase_s["10"] = time.perf_counter() - t_phase
     print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     def row(key, name, source, replaces, ms, plain, lib):
@@ -986,6 +1017,8 @@ def main():
                 "replaces": replaces, "launches": launches[name],
                 "slam_launches": slam_launches[name],
                 "closure_launches": closure_launches[name],
+                "ring_launches": ring_launches[name],
+                "dataset_launches": dataset_launches[name],
                 "max_abs_err": errs[key], "ms": ms, "plain_ms": plain,
                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                 "library_ms": lib}
@@ -1031,6 +1064,8 @@ def main():
     print(json.dumps({"sfm": sfm}))
     print(json.dumps({"slam": slam}))
     print(json.dumps({"closure": closure}, default=str))
+    print(json.dumps({"parallel": parallel}, default=str))
+    print(json.dumps({"dataset": dataset}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

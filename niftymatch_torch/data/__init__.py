@@ -1,6 +1,8 @@
 """Datasets: synthetic multi-view scenes with exact ground truth
 (``data/synthetic.py`` of the JAX package, bit-identical for the same
-seeds)."""
+seeds), TUM RGB-D and EuRoC MAV sequence directories (``tum``,
+``euroc``), a PNG writer (``png``) and the native PNG decoder and
+prefetching loader (``native_loader``)."""
 
 from .synthetic import (
     SyntheticScene,

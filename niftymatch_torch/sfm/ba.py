@@ -169,10 +169,19 @@ def block_segments(problem: BAProblem) -> BlockSegments:
                          pair=sorted_segments(cam * L + lm, C * L))
 
 
+def _identity(x):
+    return x
+
+
 def _solve_step(problem: BAProblem, lam: torch.Tensor, config: BAConfig,
-                segs: BlockSegments | None = None):
+                segs: BlockSegments | None = None, reduce_fn=_identity):
     """One damped GN solve: returns (dxi (C, 6), dX (L, 3)).  ``segs``:
-    the problem's :func:`block_segments`, built here when not given."""
+    the problem's :func:`block_segments`, built here when not given.
+
+    A landmark-sharded solver (``parallel/ba.py``) passes its shard as
+    ``problem`` and an all-reduce over the ranks as ``reduce_fn``, which
+    sums the undamped reduced camera system and its right-hand side; the
+    camera damping is added to the sum, once."""
     C = problem.poses.shape[0]
     L = problem.landmarks.shape[0]
     segs = block_segments(problem) if segs is None else segs
@@ -192,10 +201,9 @@ def _solve_step(problem: BAProblem, lam: torch.Tensor, config: BAConfig,
     b_c = -segment_sum(torch.einsum("oij,oi->oj", J_c, r_w), segs.cam)     # (C, 6)
     b_l = -segment_sum(torch.einsum("oij,oi->oj", J_l, r_w), segs.lm)      # (L, 3)
 
-    # LM damping (additive, keeps unobserved blocks invertible).
-    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+    # LM damping (additive, keeps unobserved blocks invertible); the
+    # cameras' is added to the reduced system below.
     eye3 = torch.eye(3, dtype=Hll.dtype, device=Hll.device)
-    Hcc = Hcc + (lam + 1e-8) * eye6
     Hll = Hll + (lam + 1e-8) * eye3
 
     # Schur complement onto cameras: one GEMM over landmarks.
@@ -203,8 +211,9 @@ def _solve_step(problem: BAProblem, lam: torch.Tensor, config: BAConfig,
     A = torch.einsum("clij,ljk->clik", W, Hll_inv)           # (C, L, 6, 3)
     S_blocks = torch.einsum("clij,dlkj->cdik", A, W)         # (C, C, 6, 6)
     eyeC = torch.eye(C, dtype=Hcc.dtype, device=Hcc.device)[:, :, None, None]
-    S = (eyeC * Hcc[:, None] - S_blocks).permute(0, 2, 1, 3).reshape(C * 6, C * 6)
-    rhs = (b_c - torch.einsum("clij,lj->ci", A, b_l)).reshape(C * 6)
+    S = reduce_fn((eyeC * Hcc[:, None] - S_blocks).permute(0, 2, 1, 3).reshape(C * 6, C * 6))
+    S = S + (lam + 1e-8) * torch.eye(C * 6, dtype=S.dtype, device=S.device)
+    rhs = reduce_fn((b_c - torch.einsum("clij,lj->ci", A, b_l)).reshape(C * 6))
 
     # Gauge: pin fixed poses (identity rows/cols, zero rhs).
     fm = (~problem.pose_fixed).to(S.dtype).repeat_interleave(6)
@@ -226,18 +235,20 @@ def _apply_step(problem: BAProblem, dxi, dX) -> BAProblem:
 
 
 def lm_loop(problem: BAProblem, init_cost: torch.Tensor, config: BAConfig,
-            solve_step):
+            solve_step, reduce_fn=_identity):
     """The LM loop of both solvers: ``config.max_iterations`` steps of
     ``solve_step(problem, lam) -> (dxi, dX)`` from ``init_cost``; a step is
     kept iff it lowers the robust cost, damping x0.5 / x4.  Accept, cost
-    and damping stay on the device.  Returns (problem, BAStats)."""
+    and damping stay on the device.  A landmark-sharded solver passes an
+    all-reduce as ``reduce_fn``, which sums each candidate's cost over the
+    shards.  Returns (problem, BAStats)."""
     cost = init_cost
     lam = torch.full((), config.damping, dtype=torch.float32,
                      device=problem.poses.device)
     lams, costs = [], []
     for _ in range(config.max_iterations):
         cand = _apply_step(problem, *solve_step(problem, lam))
-        new_cost = ba_cost(cand, config.huber_delta)
+        new_cost = reduce_fn(ba_cost(cand, config.huber_delta))
         accept = new_cost < cost
         problem = problem._replace(
             poses=torch.where(accept, cand.poses, problem.poses),

@@ -19,8 +19,9 @@ The dense window solver (``ba.py``) stores the camera-landmark coupling
   rule 7).  Inside the CG applies: cumsum differences over observations
   sorted by landmark (``_seg_reduce``; a segment's absolute error scales
   with the global fp32 prefix, acceptable for the signed summands of an
-  iterative solve).  For the once-per-iteration block sums that feed the
-  3x3 inverses and the preconditioner (all-positive quadratic terms):
+  iterative solve), the prefix sums taken blockwise in a fixed order
+  (``_prefix_at``), so two runs on the card give the same bits.  For the
+  once-per-iteration block sums that feed the 3x3 inverses and the preconditioner (all-positive quadratic terms):
   exact per-segment accumulation, ``torch.segment_reduce`` over the
   sorted segments' lengths (``seg_sum_lm_exact`` / ``seg_sum_cam_exact``).
   On CUDA it sums each segment's rows in order in one thread, so it is
@@ -38,6 +39,7 @@ The dense window solver (``ba.py``) stores the camera-landmark coupling
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -69,6 +71,8 @@ class ObsLayout(NamedTuple):
     ends_cam: torch.Tensor      # (C,) exclusive end index per camera
     cam_sorted: torch.Tensor    # (O,) camera id per by-landmark row
     lm_sorted: torch.Tensor     # (O,) landmark id per by-landmark row
+    scan_lm: tuple              # ``_scan_plan`` of ends_lm
+    scan_cam: tuple             # ``_scan_plan`` of ends_cam
 
 
 def build_obs_layout(cam: torch.Tensor, lm: torch.Tensor, C: int, L: int
@@ -85,38 +89,98 @@ def build_obs_layout(cam: torch.Tensor, lm: torch.Tensor, C: int, L: int
     ends_lm = torch.searchsorted(lm_sorted, torch.arange(1, L + 1, device=lm.device))
     ends_cam = torch.searchsorted(cam_sorted_by_cam,
                                   torch.arange(1, C + 1, device=cam.device))
+    O = cam.shape[0]
     return ObsLayout(order_lm=order_lm, ends_lm=ends_lm, perm_to_cam=perm_to_cam,
-                     ends_cam=ends_cam, cam_sorted=cam_in_lm, lm_sorted=lm_sorted)
+                     ends_cam=ends_cam, cam_sorted=cam_in_lm, lm_sorted=lm_sorted,
+                     scan_lm=_scan_plan(ends_lm, O), scan_cam=_scan_plan(ends_cam, O))
 
 
-def _seg_reduce(vals: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
-    """Sorted segment sum via cumsum difference: (O, k) -> (n_seg, k).
+# The blocks of ``_prefix_at``'s levels: 32 columns at the first, whose
+# triangle product stays at the bytes' time, and 1,024 at every later one,
+# so that two or three levels cover two million columns.
+_SCAN_BLOCKS = (32, 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _ones_triangle(B: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(B, B) ones on and above the diagonal: a row of a block times it is
+    the block's inclusive prefix."""
+    return torch.ones((B, B), dtype=dtype, device=device).triu_()
+
+
+def _scan_plan(ends: torch.Tensor, O: int) -> tuple:
+    """The columns :func:`_prefix_at` reads at each level when
+    :func:`_seg_reduce` scans O rows behind a zero column: at the first,
+    0 and each segment's end; at each later one, the block of the column
+    read at the level before."""
+    at = torch.nn.functional.pad(ends, (1, 0))
+    plan, n = [at], O + 1
+    for B in (_SCAN_BLOCKS[0], *[_SCAN_BLOCKS[1]] * 8):
+        if n <= B:
+            return tuple(plan)
+        n = -(-n // B)
+        at = torch.div(at, B, rounding_mode="floor")
+        plan.append(at)
+    raise ValueError(f"{O} rows are too many to scan")
+
+
+def _prefix_at(cols: torch.Tensor, plan: tuple, level: int = 0) -> torch.Tensor:
+    """Inclusive prefix sums along the rows of (k, n) ``cols``, read at the
+    columns ``plan[level]`` (:func:`_scan_plan`): (k, m), added in an order
+    that the shape alone fixes, so a rerun gives the same bits.
+
+    Each row is cut into blocks.  A block's prefix is its product with a
+    triangle of ones, one GEMM for all blocks (cuBLAS gives the same bits
+    at every run on one GPU model and stream, its "results
+    reproducibility"); the blocks' totals behind a zero, their exclusive
+    prefixes, are scanned the same way at the next level, and only the
+    columns read get their block's offset.  The callers run with TF32 off
+    (``@f32``), so the products are fp32 sums.  ``torch.cumsum`` is no such
+    scan: PyTorch lists it among the nondeterministic operations on CUDA,
+    which scans a row with CUB's decoupled look-back, whose tiles add
+    whatever their predecessors have published when they look (two solves
+    of the 1DSfM-size problem parted by 3e-3 in the poses)."""
+    k, n = cols.shape
+    B = _SCAN_BLOCKS[min(level, 1)]
+    nb = -(-n // B)
+    if nb * B != n:
+        cols = torch.nn.functional.pad(cols, (0, nb * B - n))
+    within = cols.reshape(k * nb, B) @ _ones_triangle(B, cols.dtype, cols.device)
+    got = within.view(k, nb * B).index_select(1, plan[level])
+    if nb == 1:
+        return got
+    B1 = _SCAN_BLOCKS[1]
+    totals = torch.nn.functional.pad(within.view(k, nb, B)[:, :-1, -1],
+                                     (1, -(-nb // B1) * B1 - nb))
+    return got + _prefix_at(totals, plan, level + 1)
+
+
+def _seg_reduce(vals: torch.Tensor, plan: tuple) -> torch.Tensor:
+    """Sorted segment sum via cumsum difference: (O, k) -> (n_seg, k), the
+    segments ending where ``plan`` (the layout's :func:`_scan_plan`) says.
 
     For the per-CG-iteration operator applies only: a segment's absolute
     error scales with the global fp32 prefix, not the segment's, so the
     all-positive block sums use :func:`seg_sum_lm_exact` /
-    :func:`seg_sum_cam_exact` instead.  Each column is scanned as its own
-    contiguous 1-D tensor: CUDA's scan of a tall (O, k) tensor along
-    dim 0 runs each column's 2M rows one after another (0.3 s a call at
-    the 1DSfM size), its 1-D scan is a parallel one."""
-    cols = vals.T.contiguous()                                   # (k, O)
-    cs = torch.zeros((cols.shape[0], cols.shape[1] + 1), dtype=vals.dtype,
-                     device=vals.device)
-    for c in range(cols.shape[0]):
-        torch.cumsum(cols[c], 0, out=cs[c, 1:])
-    e = cs[:, ends].T                                            # (n_seg, k)
-    return e - torch.cat([torch.zeros_like(e[:1]), e[:-1]], dim=0)
+    :func:`seg_sum_cam_exact` instead.  The columns are scanned as the
+    rows of a (k, O) tensor (:func:`_prefix_at`): CUDA's scan of a tall
+    (O, k) tensor along dim 0 runs each column's 2M rows one after another
+    (0.3 s a call at the 1DSfM size)."""
+    O = vals.shape[0]
+    n = -(-(O + 1) // _SCAN_BLOCKS[0]) * _SCAN_BLOCKS[0]
+    e = _prefix_at(torch.nn.functional.pad(vals.T, (1, n - O - 1)), plan)   # (k, n_seg + 1)
+    return (e[:, 1:] - e[:, :-1]).T
 
 
 def seg_reduce_lm(vals: torch.Tensor, lay: ObsLayout) -> torch.Tensor:
     """(O, ...) in by-landmark order -> (L, ...) (prefix difference)."""
-    out = _seg_reduce(vals.reshape(vals.shape[0], -1), lay.ends_lm)
+    out = _seg_reduce(vals.reshape(vals.shape[0], -1), lay.scan_lm)
     return out.reshape((out.shape[0],) + vals.shape[1:])
 
 
 def seg_reduce_cam(vals: torch.Tensor, lay: ObsLayout) -> torch.Tensor:
     """(O, ...) in by-landmark order -> (C, ...) (permutes internally)."""
-    out = _seg_reduce(vals.reshape(vals.shape[0], -1)[lay.perm_to_cam], lay.ends_cam)
+    out = _seg_reduce(vals.reshape(vals.shape[0], -1)[lay.perm_to_cam], lay.scan_cam)
     return out.reshape((out.shape[0],) + vals.shape[1:])
 
 

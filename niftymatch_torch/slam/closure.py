@@ -4,7 +4,9 @@ package), in four stages:
   1. **candidate sweep** (:meth:`LoopCloser.detect_candidates`): all-pairs
      mutual match counts of the live keyframes, through K1 in bf16 on the
      card (``parallel.allpairs_match_fused``, the TPU's choice) and the
-     fp32 oracle on the CPU (``parallel.allpairs_match``);
+     fp32 oracle on the CPU (``parallel.allpairs_match``), or through the
+     ring over a keyframe mesh when a process group of more than one rank
+     is initialised (``parallel.ring_allpairs_match``);
   2. **verification** (:meth:`LoopCloser.verify_candidates`): per batch of
      ``loop_verify_batch`` candidate pairs one fp32 mutual re-match and
      ``two_view_from_matches`` for each pair, fetched once;
@@ -41,10 +43,17 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..features import Features
 from ..ops.match import MatchResult, mutual_ratio_match
-from ..parallel.matching import allpairs_match, allpairs_match_fused
+from ..parallel.matching import (
+    allpairs_match,
+    allpairs_match_fused,
+    ring_allpairs_match,
+    ring_rows,
+)
+from ..parallel.mesh import make_keyframe_mesh
 from ..sfm.posegraph import Sim3Graph, optimize_pose_graph_sim3, optimize_pose_graph_sim3_cg
 from ..utils.precision import device_constant, host_fetch
 from .frontend import two_view_from_matches
@@ -92,18 +101,30 @@ class LoopCloser:
         # later optimisations must stay consistent with
         # (see loop_edge_consistency).
         self.last_loop_edges: tuple | None = None
+        self._mesh = None
 
     # ------------------------------------------------------------------
     # Stage 1: candidate sweep
     # ------------------------------------------------------------------
     def sweep(self):
         """Mutual match counts of every live keyframe against every other,
-        read from the feature store (slot k is keyframe k): K1 in bf16 on
-        the card, the fp32 oracle on the CPU.  Counts only: the candidates'
-        indices come from a batched re-match of just those pairs."""
+        read from the feature store (slot k is keyframe k).  Where a
+        process group of more than one rank is initialised, every rank
+        passes its rows of the store (``ring_rows``) to the ring over its
+        keyframe mesh (``ring_allpairs_match``, fp32: K1 on the card, the
+        oracle on the CPU), as the JAX package shards the store over its
+        ring when more than one device is visible; otherwise K1 in bf16 on the card and the fp32
+        oracle on the CPU.  Counts only: the candidates' indices come from
+        a batched re-match of just those pairs."""
         K = len(self._sys.keyframes)
         buf = self._sys._store.view()
         desc, valid = buf.desc[:K], buf.valid[:K]
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            if self._mesh is None:
+                self._mesh = make_keyframe_mesh(device_type=desc.device.type)
+            rows = ring_rows(K, self._mesh)
+            return ring_allpairs_match(desc[rows], valid[rows], self._mesh,
+                                       ambiguity=AMBIGUITY, mutual=True, num_frames=K)
         if desc.device.type == "cuda":
             return allpairs_match_fused(desc, valid, ambiguity=AMBIGUITY, mutual=True,
                                         precision="bf16")

@@ -1,7 +1,12 @@
-"""Checkpoint and resume of SLAM map state (``save_slam_state`` /
-``load_slam_state`` of the JAX package's ``utils/checkpoint.py``).
+"""Checkpoints: pytrees of arrays (``save_pytree`` / ``load_pytree``) and
+SLAM map state (``save_slam_state`` / ``load_slam_state``), the JAX
+package's ``utils/checkpoint.py``.
 
-The directory layout is the JAX package's, so a checkpoint written by
+A pytree goes into one ``.npz`` (the JAX package's container where it
+has no orbax; the port does not use orbax): its leaves as ``leaf_<i>`` in
+``torch.utils._pytree``'s order.
+
+The SLAM directory layout is the JAX package's, so a checkpoint written by
 either package loads into the other: ``meta.json`` (keyframe count, next
 track id, image size and intrinsics), ``tracks.npz`` (``positions``,
 ``alive``) and one ``kf_%05d.npz`` per keyframe (``pose``, ``track_ids``
@@ -15,10 +20,38 @@ import os
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..features import Features
 from ..slam.keyframe import Keyframe
 from .precision import device_constant, host_fetch, state_to
+
+
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_pytree(path: str, tree) -> None:
+    """Save a pytree of arrays or tensors to ``path`` (``.npz`` added)."""
+    leaves, spec = tree_flatten(tree)
+    np.savez(_npz(path), treedef=np.frombuffer(str(spec).encode(), dtype=np.uint8),
+             **{f"leaf_{i}": (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                              else np.asarray(v)) for i, v in enumerate(leaves)})
+
+
+def load_pytree(path: str, like):
+    """Load a pytree saved by :func:`save_pytree` in the structure of
+    ``like``; a leaf that is a tensor in ``like`` comes back as a tensor on
+    that leaf's device, any other as a numpy array."""
+    leaves, spec = tree_flatten(like)
+    with np.load(_npz(path)) as data:
+        if len(data.files) - 1 != len(leaves):
+            raise ValueError(f"{path}: {len(data.files) - 1} leaves, the structure has "
+                             f"{len(leaves)}")
+        new = [data[f"leaf_{i}"] for i in range(len(leaves))]
+    new = [torch.from_numpy(a).to(v.device) if isinstance(v, torch.Tensor) else a
+           for a, v in zip(new, leaves)]
+    return tree_unflatten(new, spec)
 
 
 def save_slam_state(path: str, slam) -> None:

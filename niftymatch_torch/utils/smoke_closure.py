@@ -350,6 +350,8 @@ def golden_phase(dev, variant: str = "standard"):
            "ate_post_gba": ate_gba, "ate_final": ate_final, "extent": extent,
            "sweep_against_oracle": sweep_cmp, "close_loops_profile": prof,
            "launches": launches}
+    buf = slam._store.view()
+    store = (buf.desc[:K].contiguous(), buf.valid[:K].contiguous())
     print(f"[closure] 9b {variant} golden loop: {len(frames)} frames rendered in "
           f"{render_s:.1f} s, tracked in {track_s:.1f} s ({out['timed_frames_per_s']:.3f} "
           f"frames/s after {warm}), {K} keyframes, {out['relocs']} relocs")
@@ -368,12 +370,16 @@ def golden_phase(dev, variant: str = "standard"):
         assert ate_final <= ATE_FACTOR * JAX_FINAL_ATE, f"9b: final ATE {ate_final}"
         if dev.type == "cuda":
             assert out["k1_bf16_per_sweep"] == K, sweep_launches
-    return out
+    return out, store, cfg
 
 
 def run(dev):
-    """Every part of phase 9 at the card's sizes."""
-    return {"parity": parity_phase(dev), "golden": golden_phase(dev)}
+    """Every part of phase 9 at the card's sizes.  Returns (the numbers,
+    9b's keyframe store (desc, valid) of its live keyframes, 9b's
+    SlamConfig) for phase 10a."""
+    parity = parity_phase(dev)
+    golden, store, cfg = golden_phase(dev)
+    return {"parity": parity, "golden": golden}, store, cfg
 
 
 def main():
@@ -385,7 +391,7 @@ def main():
     from niftymatch_torch.kernels import _build
 
     _build.build_all()
-    out = golden_phase(torch.device("cuda"), args.variant)
+    out = golden_phase(torch.device("cuda"), args.variant)[0]
     if args.variant == "hard":
         print(f"[closure] the JAX package's hard variant (ATE_r05.json): "
               f"{JAX_HARD_ATES[0]} / {JAX_HARD_ATES[1]} / {JAX_HARD_ATES[2]}")

@@ -144,13 +144,20 @@ def parity_phase(dev, num_cams=8):
 # -- 8b ---------------------------------------------------------------------
 
 
+def clip_scene():
+    """8b's scene (``bench_slam_loop``)."""
+    from niftymatch_torch.data import make_scene
+
+    return make_scene(num_cams=CLIP_FRAMES, num_landmarks=1200, seed=0, radius=6.0,
+                      width=640, height=480)
+
+
 def clip():
     """8b's scene, uint8 frames and ``SlamConfig`` (``bench_slam_loop``)."""
     import niftymatch_torch as nt
-    from niftymatch_torch.data import make_scene, render_frames
+    from niftymatch_torch.data import render_frames
 
-    scene = make_scene(num_cams=CLIP_FRAMES, num_landmarks=1200, seed=0, radius=6.0,
-                       width=640, height=480)
+    scene = clip_scene()
     frames = np.clip(render_frames(scene, seed=0), 0, 255).astype(np.uint8)
     cfg = nt.SlamConfig(width=640, height=480,
                         intrinsics=tuple(float(v) for v in scene.intrinsics),
@@ -280,9 +287,13 @@ def checkpoint_phase(slam, frames, cfg, dev):
 
 
 def run(dev):
-    """Every part of phase 8 at the card's sizes."""
+    """Every part of phase 8 at the card's sizes.  Returns (the numbers,
+    8b's clip and result for phase 10d: {"frames", "scene", "config",
+    "poses" and "ate" after 8b, "warmup"})."""
     out = {"parity": parity_phase(dev)}
     slam, frames, cfg, gt_kept, out["loop"] = loop_phase(dev)
+    clip_8b = {"frames": frames, "scene": clip_scene(), "config": cfg, "poses": slam.poses(),
+               "ate": out["loop"]["sim3_ate"], "warmup": WARMUP}
     out["global_ba"] = global_ba_phase(slam, gt_kept, dev)
     out["checkpoint"] = checkpoint_phase(slam, frames, cfg, dev)
-    return out
+    return out, clip_8b

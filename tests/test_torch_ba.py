@@ -179,7 +179,7 @@ def test_block_sums_exact_vs_prefix_diff(rng):
     lay = tcg.build_obs_layout(torch.zeros(O, dtype=torch.int64), torch.from_numpy(lm), 1, 2)
     ref = vals[-16:].astype(np.float64).sum()
     exact = float(tcg.seg_sum_lm_exact(torch.from_numpy(vals), lay)[1, 0])
-    plain = float(tcg._seg_reduce(torch.from_numpy(vals), lay.ends_lm)[1, 0])
+    plain = float(tcg.seg_reduce_lm(torch.from_numpy(vals), lay)[1, 0])
     assert abs(exact - ref) / ref < 1e-5, (exact, ref)
     assert abs(exact - ref) <= abs(plain - ref)
 

@@ -25,7 +25,11 @@ variants agree with their plain versions under ``kernels.fold.agreement``
 and give the same bits on every run; the all-pairs sweep in bf16 lies
 within 2 % + 2 of the fp32 oracle's counts (ratio tests that flip within
 bf16 noise), in fp32 within 2 (a tie broken in another order); loop
-closure passes phase 9a.
+closure passes phase 9a.  The ring's block match through K1 fp32 lies
+within 2 of its plain version's counts (indices equal in 99.5 % of the
+matched slots); the ring at world 1 on NCCL equals the fused sweep bit for
+bit and lies within 2 of the oracle; distributed dense and PCG BA at
+world 1 give the single-device solvers' bits.
 """
 
 import dataclasses
@@ -645,15 +649,18 @@ def test_sfm_phase_on_card():
 
 
 def test_ba_and_pose_graphs_rerun_bit_identical():
-    """Dense ``bundle_adjust`` and the SE(3), Sim(3) and Sim(3)-CG pose
-    graphs, each run twice on the card: the same bits (their sums are
-    sorted segment sums, no float atomics)."""
+    """Dense ``bundle_adjust``, ``bundle_adjust_cg`` (at 65,536 observations,
+    beyond one tile of CUDA's one-row scan) and the SE(3), Sim(3) and
+    Sim(3)-CG pose graphs, each run twice on the card: the same bits (their
+    sums are sorted segment sums and prefix sums in a fixed order, no float
+    atomics)."""
     from niftymatch_torch.sfm import (
         optimize_pose_graph,
         optimize_pose_graph_sim3,
         optimize_pose_graph_sim3_cg,
     )
     from niftymatch_torch.utils.smoke_sfm import (
+        global_problem,
         perturbed_problem,
         se3_chain_graph,
         sim3_loop_graph,
@@ -665,6 +672,11 @@ def test_ba_and_pose_graphs_rerun_bit_identical():
     runs = [nt.bundle_adjust(problem, cfg, device=dev) for _ in range(2)]
     for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
         assert torch.equal(a, b)
+    problem = global_problem(64, 16384, 1024)[1]
+    cfg = nt.BAConfig(max_iterations=6, damping=1e-3, cg_iterations=24)
+    runs = [nt.bundle_adjust_cg(problem, cfg, device=dev) for _ in range(2)]
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b), "bundle_adjust_cg"
     _, chain = se3_chain_graph(64)
     _, loop = sim3_loop_graph(64, 1.03, anchors=[63])
     for opt, graph, kw in [(optimize_pose_graph, chain, dict(iterations=8)),
@@ -784,3 +796,102 @@ def test_closure_parity_phase_on_card():
     from niftymatch_torch.utils import smoke_closure
 
     smoke_closure.parity_phase(cuda_device())
+
+
+@pytest.fixture()
+def nccl_world1(tmp_path):
+    """A process group of this process alone on NCCL (file:// rendezvous)."""
+    import torch.distributed as dist
+
+    from niftymatch_torch.parallel import initialize_distributed
+
+    dev = cuda_device()
+    torch.cuda.set_device(dev.index or 0)
+    initialize_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0, "nccl")
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def _keyframes(K, N, seed=5):
+    rng = np.random.default_rng(seed)
+    pool = rng.random((N + N // 2, 128)).astype(np.float32)
+    desc = np.stack([pool[rng.choice(len(pool), N, replace=False)]
+                     + rng.normal(0, 0.03, (N, 128)).astype(np.float32) for _ in range(K)])
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    return torch.from_numpy(desc), torch.from_numpy(rng.random((K, N)) > 0.1)
+
+
+@pytest.mark.parametrize("mutual", [False, True])
+def test_ring_block_match_k1_matches_plain(mutual):
+    """The ring's block match through K1 fp32 (one launch per visiting
+    frame, a second with ``mutual``) against its plain version, the fp32
+    oracle on the CPU: counts within 2, indices equal in 99.5 % of the
+    matched slots."""
+    from niftymatch_torch.parallel.matching import _pack, _ring_block_match, _unpack
+
+    dev = cuda_device()
+    desc, valid = _keyframes(5, 1024)
+    packed = _pack(desc, valid)
+    res, vis = packed[:3], packed[3:]
+    want_c, want_i = _ring_block_match(_unpack(res), _unpack(vis), 0.8, mutual)
+    _build.reset_launches()
+    got_c, got_i = _ring_block_match(_unpack(res.to(dev)), _unpack(vis.to(dev)), 0.8, mutual)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k1_match_top2"] == 2 * (1 + mutual)
+    assert np.abs(np_(got_c).astype(int) - np_(want_c)).max() <= 2
+    hit = (np_(want_i) >= 0) | (np_(got_i) >= 0)
+    assert (np_(got_i) == np_(want_i))[hit].mean() >= 0.995
+
+
+def test_ring_world1_nccl_matches_oracle_and_fused(nccl_world1):
+    """The ring at world 1 on NCCL: counts within 2 of the fp32 oracle on
+    the card, and counts and indices equal to ``allpairs_match_fused``
+    (the same K1 rows) bit for bit."""
+    from niftymatch_torch.parallel import (
+        allpairs_match,
+        allpairs_match_fused,
+        make_keyframe_mesh,
+        ring_allpairs_match,
+    )
+
+    dev = nccl_world1
+    desc, valid = (t.to(dev) for t in _keyframes(6, 1024))
+    mesh = make_keyframe_mesh()
+    _build.reset_launches()
+    ring = ring_allpairs_match(desc, valid, mesh, ambiguity=0.7, mutual=True,
+                               return_indices=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k1_match_top2"] == 12
+    fused = allpairs_match_fused(desc, valid, ambiguity=0.7, mutual=True, return_indices=True)
+    assert torch.equal(ring.counts, fused.counts) and torch.equal(ring.indices, fused.indices)
+    oracle = allpairs_match(desc, valid, ambiguity=0.7, mutual=True).counts
+    assert int((ring.counts - oracle).abs().max()) <= 2
+
+
+@pytest.mark.parametrize("cg", [False, True])
+def test_distributed_ba_world1_bit_identical(nccl_world1, cg):
+    """Distributed BA at world 1 on NCCL gives the single-device solver's
+    bits on the same (partition-ordered) problem, and a rerun the same."""
+    import niftymatch_torch as nt
+    from niftymatch_torch.parallel import (
+        distributed_bundle_adjust,
+        distributed_bundle_adjust_cg,
+        make_keyframe_mesh,
+        partition_by_landmark,
+    )
+    from niftymatch_torch.utils.smoke_sfm import perturbed_problem
+
+    dev = nccl_world1
+    _, problem = perturbed_problem(8, 512, noise_px=0.5)
+    sharded = partition_by_landmark(problem, 1)
+    cfg = nt.BAConfig(max_iterations=5, damping=1e-3, cg_iterations=24)
+    solve = distributed_bundle_adjust_cg if cg else distributed_bundle_adjust
+    ref = nt.bundle_adjust_cg if cg else nt.bundle_adjust
+    want, want_st = ref(nt.BAProblem(*sharded), cfg, device=dev)
+    for _ in range(2):
+        got, st = solve(sharded, make_keyframe_mesh(), cfg)
+        assert torch.equal(st.costs, want_st.costs)
+        assert torch.equal(got.poses, want.poses)
+        assert torch.equal(got.landmarks, want.landmarks)

@@ -21,7 +21,12 @@ MODULES = [
     "niftymatch_torch.config",
     "niftymatch_torch.convert",
     "niftymatch_torch.data",
+    "niftymatch_torch.data.euroc",
+    "niftymatch_torch.data.native_loader",
+    "niftymatch_torch.data.png",
     "niftymatch_torch.data.synthetic",
+    "niftymatch_torch.data.tum",
+    "niftymatch_torch.dryrun",
     "niftymatch_torch.features",
     "niftymatch_torch.geometry",
     "niftymatch_torch.geometry.fivepoint",
@@ -46,7 +51,12 @@ MODULES = [
     "niftymatch_torch.ops.pyramid",
     "niftymatch_torch.ops.warp",
     "niftymatch_torch.parallel",
+    "niftymatch_torch.parallel.ba",
+    "niftymatch_torch.parallel.comm",
     "niftymatch_torch.parallel.matching",
+    "niftymatch_torch.parallel.mesh",
+    "niftymatch_torch.parallel.multihost",
+    "niftymatch_torch.parallel.spawn",
     "niftymatch_torch.sfm",
     "niftymatch_torch.sfm.ba",
     "niftymatch_torch.sfm.ba_cg",
@@ -69,10 +79,14 @@ MODULES = [
     "niftymatch_torch.utils.checkpoint",
     "niftymatch_torch.utils.metrics",
     "niftymatch_torch.utils.precision",
+    "niftymatch_torch.utils.profiling",
     "niftymatch_torch.utils.smoke_closure",
+    "niftymatch_torch.utils.smoke_dataset",
     "niftymatch_torch.utils.smoke_fold",
+    "niftymatch_torch.utils.smoke_parallel",
     "niftymatch_torch.utils.smoke_sfm",
     "niftymatch_torch.utils.smoke_slam",
+    "niftymatch_torch.utils.timing",
     "chip_smoke",
 ]
 
