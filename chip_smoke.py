@@ -19,9 +19,13 @@ Phases (any failed check raises, so the script exits non-zero):
      bit); and each of K4's nine fold variants (``kernels/fold.py``)
      against its plain version and a second run of itself at both shapes
      of the fold microbenchmark (16 pairs of 1024 x 128 and one pair of
-     4096 x 128 uniform descriptors, ``utils/smoke_fold.operands``), with
+     4096 x 128 uniform descriptors, ``utils/smoke_fold.operands``; the
+     second split across 4 CTAs a row block) and at two shapes of no
+     tile's multiple (3 pairs of 1000 x 1000, 2 of 1000 x 1), with
      ``kernels.fold.agreement``'s tolerances, ``gemm`` and ``rowsum`` also
-     with their sums added to 0 (at 3.4e38 every sum reads 3.4e38);
+     with their sums added to 0 (at 3.4e38 every sum reads 3.4e38), and
+     with exact ties planted across the first and last split of
+     (4096, 1): the lower column keeps idx1;
   3. the pair path: a scene and the same scene shifted by 5 px, through
      ``make_pair_pipeline``: > 100 matches, median dx = -5.00 +- 0.01;
   4. the batch path: ``detect_and_describe_batch`` on 16 images and one
@@ -38,9 +42,12 @@ Phases (any failed check raises, so the script exits non-zero):
      library call computing the same function; and K4's path, the fold
      microbenchmark (``utils/smoke_fold.run``) at (k 1,024, nb 16) and
      (k 4,096, nb 1), counted with the launch counts reset just before and
-     read just after: each variant's ms beside its bound, K1 bf16 on the
-     same operands, each variant's plain ms and, for ``current``, one
-     library call (bf16 ``baddbmm`` + ``topk``);
+     read just after: each variant's ms beside its bound, its ms in a
+     graph of 20 launches, the same two of the kernel without its
+     warpgroups' turns and of the K1-loop kernel (the timing library), the
+     replay of a graph of one ``zero_()``, K1 bf16 on the same operands,
+     each variant's plain ms and, for ``current``, one library call (bf16
+     ``baddbmm`` + ``topk``) at both shapes;
   6. geometry and mosaic on the card: phase 3's pair through
      ``align_points`` -> ``ransac(model="homography")`` at the defaults
      (2048 iterations, threshold 9, 2048 slots), H within 1 px of the
@@ -134,7 +141,9 @@ with their launches in phase 4 and, as ``slam_launches``,
 ``closure_launches``, ``ring_launches`` and ``dataset_launches``, in 8b's
 timed run, 9b's whole run, 10a's world-1 path (``shard_detect`` and one
 mutual ring sweep) and 10d's run from disk; each K4 variant with its
-launches in phase 5's microbenchmark), the nvidia-smi line, and as its
+launches in phase 5's microbenchmark and its times there: at both shapes,
+the kernel's, in a run of 20, without the turns, and the K1-loop kernel's,
+measured in the same run), the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``.
 Each phase prints its seconds.
 Exits non-zero with no result when CUDA is absent or the package is not
@@ -175,8 +184,10 @@ K2_OPS_PER_PIXEL = 13
 K3_OPS_PER_PIXEL = 29
 K3_OPS_PER_PAIR = 2
 K3_OPS_PER_BIN = 2
-# K4's shapes (k, pairs): benchmarks/fold_micro.py's defaults and its 4K file.
+# K4's shapes (k, pairs): benchmarks/fold_micro.py's defaults and its 4K file;
+# and the checks' shapes (k, pairs, B rows) of no tile's multiple.
 K4_SHAPES = ((1024, 16), (4096, 1))
+K4_ODD_SHAPES = ((1000, 3, 1000), (1000, 2, 1))
 
 
 def make_scene(h, w, seed, n_blobs, device):
@@ -241,9 +252,11 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps):
+def graph_ms(fn, reps, launches=1):
     """Mean device ms of ``fn`` captured once in a CUDA graph and replayed,
-    so the host's launch overhead does not enter a kernel's time."""
+    so the host's launch overhead does not enter a kernel's time; with
+    ``launches`` > 1 the graph holds that many calls back to back, and the
+    replay's ms is divided by them."""
     import torch
 
     side = torch.cuda.Stream()
@@ -253,8 +266,9 @@ def graph_ms(fn, reps):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(graph.replay, reps)
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, reps) / launches
 
 
 def window_work(planes, cfg, kp, image, valid, angle0=None, step=256):
@@ -638,6 +652,36 @@ def per_octave_phase(nt, image, cfg, dev):
     return {"per_octave_features": int(vo.sum()), "per_octave_max_diff": worst}
 
 
+def check_k4(shape, ops, errs, dev, only=None):
+    """Phase 2's check of K4's variants (``only`` one of them) on the
+    operands ``ops``: against the plain version with ``kernels.fold.
+    agreement``'s tolerances and against a second run, bit for bit; ``gemm``
+    and ``rowsum`` also with their sums added to 0.  Records each variant's
+    largest error in ``errs``; returns the last result."""
+    import torch
+
+    from niftymatch_torch.kernels import fold as k4
+
+    a_mat, _, b_mat, b_norm = ops
+    d = k4.distances(a_mat, b_mat, b_norm)
+    for v in k4.FOLDS if only is None else (only,):
+        for base in (k4.BIG, 0.0) if v in ("gemm", "rowsum") else (k4.BIG,):
+            got = k4.fold_variant(a_mat, b_mat, b_norm, v, base=base)
+            again = k4.fold_variant(a_mat, b_mat, b_norm, v, base=base)
+            want = k4.fold_variant_plain(a_mat, b_mat, b_norm, v, base=base)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, w) for u, w in zip(got, again)), \
+                f"k4 {v} (base {base:g}) at {shape} differs between two runs"
+            res = k4.agreement(v, got, want, d, base=base)
+            key = k4.launch_name(v)
+            errs[key] = max(errs.get(key, 0.0), res["max_abs_err"])
+            print(f"[kernels] k4 {v} at (k, nb, n) {shape}, base {base:g}: max abs err "
+                  f"{res['max_abs_err']:.3e}, index exempt rows {res['exempt_rows']} of "
+                  f"{d.shape[0] * d.shape[1]}; a second run equal bit for bit")
+            assert res["ok"], f"k4 {v} (base {base:g}) at {shape} disagrees: {res}"
+    return got
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -670,13 +714,13 @@ def main():
     phase_s, t_phase = {}, time.perf_counter()   # seconds of each phase
 
     # -- 1. build -----------------------------------------------------------
-    build_s = _build.build_all()
+    build_s = _build.build_all(_build.SOURCES + ("fold_micro" + _build.TIMING,))
     smi = card_line()
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"[build] kernels built in {build_s:.1f} s on {card}")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "warning" in line:
+            if any(w in line for w in ("registers", "spill", "warning", "(C75")):
                 print(f"[build] {name}.cu: {line.strip()}")
 
     phase_s["1"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
@@ -745,30 +789,29 @@ def main():
     print("[kernels] k1 (fp32, bf16), k2 and k3: a second run equals the first "
           "bit for bit")
 
-    # K4 at both shapes of its path; gemm and rowsum also with their sums
-    # added to 0, since at 3.4e38 every sum reads 3.4e38.
-    for shape in K4_SHAPES:
-        ops4 = smoke_fold.operands(*shape, dev)
-        a_mat4, _, b_mat4, b_norm4 = ops4
-        d4 = k4.distances(a_mat4, b_mat4, b_norm4)
-        for v in k4.FOLDS:
-            for base in (k4.BIG, 0.0) if v in ("gemm", "rowsum") else (k4.BIG,):
-                got = k4.fold_variant(a_mat4, b_mat4, b_norm4, v, base=base)
-                again = k4.fold_variant(a_mat4, b_mat4, b_norm4, v, base=base)
-                want = k4.fold_variant_plain(a_mat4, b_mat4, b_norm4, v, base=base)
-                torch.cuda.synchronize()
-                assert all(torch.equal(u, w) for u, w in zip(got, again)), \
-                    f"k4 {v} (base {base:g}) at {shape} differs between two runs"
-                res = k4.agreement(v, got, want, d4, base=base)
-                key = k4.launch_name(v)
-                errs[key] = max(errs.get(key, 0.0), res["max_abs_err"])
-                print(f"[kernels] k4 {v} at k {shape[0]}, nb {shape[1]}, base {base:g}: "
-                      f"max abs err {res['max_abs_err']:.3e}, index exempt rows "
-                      f"{res['exempt_rows']} of {d4.shape[0] * d4.shape[1]}; a second run "
-                      f"equal bit for bit")
-                assert res["ok"], f"k4 {v} (base {base:g}) at {shape} disagrees: {res}"
-        del d4
+    # K4 at both shapes of its path and two odd ones; gemm and rowsum also
+    # with their sums added to 0, since at 3.4e38 every sum reads 3.4e38;
+    # then ties across the splits of (4096, 1).
+    for k, nb, n in tuple(s + (None,) for s in K4_SHAPES) + K4_ODD_SHAPES:
+        ops4 = smoke_fold.operands(k, nb, dev, n=n)
+        check_k4((k, nb, n), ops4, errs, dev)
+    rows4 = list(range(0, 4096, 331))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bounds4 = k4.split_bounds(4096, k4.column_splits(1, 4096, 4096, sms))
+    assert len(bounds4) == 4, "k4 at (4096, 1) is not split 4 ways"
+    ties = [(0, i, bounds4[0][0] + j, bounds4[-1][0] + j) for j, i in enumerate(rows4)]
+    tied = smoke_fold.plant_ties(smoke_fold.operands(4096, 1, dev), ties)
+    lower = torch.tensor([c for _, _, c, _ in ties], dtype=torch.int32)
+    for v in k4.FOLDS:
+        g1, gi, g2 = (t[0, rows4].cpu() for t in check_k4((4096, 1, "tied"), tied, errs, dev, v))
+        if v not in ("gemm", "rowsum", "min1"):
+            assert torch.equal(g1, g2), f"k4 {v}: a planted tie's min2 is not its min1"
+        if v in ("current", "pipe", "top2idx", "bf16", "slotpack"):
+            assert torch.equal(gi, lower), f"k4 {v}: a tie across splits lost its lower column"
+    print(f"[kernels] k4 ties across {len(bounds4)} splits at (4096, 1), {len(ties)} rows: "
+          f"min2 = min1, idx1 the lower column")
     a_mat4, _, b_mat4, b_norm4 = smoke_fold.operands(*K4_SHAPES[0], dev)
+    a_big4, _, b_big4, b_norm_big4 = smoke_fold.operands(*K4_SHAPES[1], dev)
 
     phase_s["2"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
@@ -940,7 +983,8 @@ def main():
 
     # K4's path: the fold microbenchmark at both shapes, its launches counted.
     _build.reset_launches()
-    k4_rows = {shape: smoke_fold.run(*shape, graph_ms, bf16_bound, reps=reps, device=dev)
+    k4_rows = {shape: smoke_fold.run(*shape, graph_ms, bf16_bound, reps=reps, device=dev,
+                                     ablations=("noturns", "k1loop"))
                for shape in K4_SHAPES}
     torch.cuda.synchronize()
     k4_launches = dict(_build.K4_LAUNCHES)
@@ -955,14 +999,19 @@ def main():
                           b_mat.transpose(1, 2), alpha=-2.0)
         return torch.topk(d, 2, dim=-1, largest=False)
 
-    k4_lib = graph_ms(lambda: k4_library(a_mat4, b_mat4, b_norm4), reps)
+    k4_lib = {K4_SHAPES[0]: graph_ms(lambda: k4_library(a_mat4, b_mat4, b_norm4), reps),
+              K4_SHAPES[1]: graph_ms(lambda: k4_library(a_big4, b_big4, b_norm_big4), reps)}
     for shape, rows in k4_rows.items():
-        print(f"[time] k4 fold microbenchmark, k {shape[0]}, nb {shape[1]} "
-              f"(bound {rows[0]['bound_ms']:.5f} ms, {rows[0]['bound_by']}): " + ", ".join(
+        print(f"[time] k4 fold microbenchmark, k {shape[0]}, nb {shape[1]} (bound "
+              f"{rows[0]['bound_ms']:.5f} ms, {rows[0]['bound_by']}; a graph of one zero_() "
+              f"{rows[0]['timer_floor_ms']:.5f} ms): " + ", ".join(
                   f"{r['fold']} {r['ms']:.5f} ms ({r['pct_of_bound']:.1f} %, "
-                  f"+{r['us_over_rowsum']:.2f} us)" for r in rows))
+                  f"{r['us_over_rowsum']:+.2f} us; in a run {r['ms_in_run']:.5f}"
+                  + (f"; no turns {r['ms_noturns']:.5f}, K1 loop {r['ms_k1loop']:.5f}"
+                     if "ms_k1loop" in r else "") + ")" for r in rows))
     print(f"[time] k4 plain ms at k 1024, nb 16: {k4_plain}; library (current: bf16 "
-          f"baddbmm + topk) {k4_lib:.5f} ms; launches {k4_launches}")
+          f"baddbmm + topk) {k4_lib[K4_SHAPES[0]]:.5f} ms, at k 4096, nb 1 "
+          f"{k4_lib[K4_SHAPES[1]]:.5f} ms; launches {k4_launches}")
 
     phase_s["5"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
@@ -1026,7 +1075,7 @@ def main():
     def k4_row(v):
         at = {shape: next(r for r in rows if r["fold"] == v)
               for shape, rows in k4_rows.items()}
-        main = at[K4_SHAPES[0]]
+        main, big = at[K4_SHAPES[0]], at[K4_SHAPES[1]]
         return {"name": k4.launch_name(v), "route": "cuda",
                 "source": "niftymatch_torch/csrc/fold_micro.cu",
                 "replaces": "benchmarks/fold_micro.py:59",
@@ -1034,9 +1083,15 @@ def main():
                 "max_abs_err": errs[k4.launch_name(v)], "ms": main["ms"],
                 "plain_ms": k4_plain[v], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
-                "library_ms": k4_lib if v == "current" else None,
-                "ms_k4096_nb1": at[K4_SHAPES[1]]["ms"],
-                "bound_ms_k4096_nb1": at[K4_SHAPES[1]]["bound_ms"]}
+                "library_ms": k4_lib[K4_SHAPES[0]] if v == "current" else None,
+                "ms_in_run": main["ms_in_run"], "ms_k1loop": main["ms_k1loop"],
+                "ms_noturns": main["ms_noturns"],
+                "timer_floor_ms": main["timer_floor_ms"],
+                "ms_k4096_nb1": big["ms"], "ms_in_run_k4096_nb1": big["ms_in_run"],
+                "ms_k1loop_k4096_nb1": big["ms_k1loop"],
+                "ms_noturns_k4096_nb1": big["ms_noturns"],
+                "bound_ms_k4096_nb1": big["bound_ms"],
+                "library_ms_k4096_nb1": k4_lib[K4_SHAPES[1]] if v == "current" else None}
 
     kernels = [
         row("k1", "k1_match_top2", "niftymatch_torch/csrc/match.cu",

@@ -41,7 +41,9 @@ def test_library_name_follows_source_and_headers(csrc_copy, name):
 
 @pytest.mark.parametrize("name,entry", [("match", "nm_match_top2_variant"),
                                         ("descriptors", "nm_descriptors_variant"),
-                                        ("windows", "nm_orientation_hists_variant")])
+                                        ("windows", "nm_orientation_hists_variant"),
+                                        ("fold_micro", "nm_fold_variant_noturns"),
+                                        ("fold_micro", "nm_fold_variant_k1loop")])
 def test_timing_variants_build_only_into_their_own_library(name, entry):
     """The timing variants' entry point is compiled only under
     NM_TIMING_VARIANTS, which only the ``<source>_timing`` library sets."""

@@ -22,7 +22,8 @@ give the same bits on every run.  ``slam_step`` on the card agrees with
 its CPU run (matches, inliers and success equal, pose and world points
 within 1e-3) and the SLAM system passes phase 8a.  K4's nine fold
 variants agree with their plain versions under ``kernels.fold.agreement``
-and give the same bits on every run; the all-pairs sweep in bf16 lies
+and give the same bits on every run, also split across CTAs, with ties
+across splits and in graph replays; the all-pairs sweep in bf16 lies
 within 2 % + 2 of the fp32 oracle's counts (ratio tests that flip within
 bf16 noise), in fp32 within 2 (a tie broken in another order); loop
 closure passes phase 9a.  The ring's block match through K1 fp32 lies
@@ -728,16 +729,21 @@ def test_slam_parity_phase_on_card():
 # --- K4, the all-pairs sweep and loop closure on the card ------------------
 
 
-@pytest.mark.parametrize("k,nb", [(1024, 16), (4096, 1), (2048, 2)])
+@pytest.mark.parametrize("k,nb,n", [(1024, 16, None), (4096, 1, None), (2048, 2, None),
+                                    (1000, 3, None), (1000, 2, 1)])
 @pytest.mark.parametrize("fold", tf.FOLDS)
-def test_k4_matches_plain(fold, k, nb):
+def test_k4_matches_plain(fold, k, nb, n):
     """Each fold variant against its plain version (``kernels.fold.
     agreement``'s tolerances) and against a second run, bit for bit, at
-    the fold microbenchmark's two shapes and one between them."""
+    the fold microbenchmark's two shapes, one between them (split in 4 as
+    (4,096, 1) is), 1,000 rows against 1,000 (no multiple of any tile; 4
+    splits of 8 tiles) and against one B row (n = 1: no second value, 1
+    split).  One launch a call: the splits' merge runs in the kernel's last
+    CTA of each row block."""
     from niftymatch_torch.utils import smoke_fold
 
     dev = cuda_device()
-    a_mat, _, b_mat, b_norm = smoke_fold.operands(k, nb, dev)
+    a_mat, _, b_mat, b_norm = smoke_fold.operands(k, nb, dev, n=n)
     _build.reset_launches()
     got = tf.fold_variant(a_mat, b_mat, b_norm, fold)
     again = tf.fold_variant(a_mat, b_mat, b_norm, fold)
@@ -749,11 +755,84 @@ def test_k4_matches_plain(fold, k, nb):
     assert res["ok"], res
 
 
+def _k4_splits(k, nb):
+    dev = cuda_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return tf.column_splits(nb, k, k, sms)
+
+
+@pytest.mark.parametrize("fold", tf.FOLDS)
+def test_k4_cross_split_tie(fold):
+    """Rows with an exact tie of their two minima at columns in the first
+    and the last column split (``smoke_fold.plant_ties``) at (4,096, 1):
+    the lower column keeps idx1, and min2 equals min1."""
+    from niftymatch_torch.utils import smoke_fold
+
+    dev = cuda_device()
+    splits = _k4_splits(4096, 1)
+    assert splits == 4           # the grid fills the card: 4 x 32 CTAs
+    bounds = tf.split_bounds(4096, splits)
+    rows = list(range(0, 4096, 331))
+    ties = [(0, i, bounds[0][0] + j, bounds[-1][0] + j) for j, i in enumerate(rows)]
+    a_mat, _, b_mat, b_norm = smoke_fold.plant_ties(smoke_fold.operands(4096, 1, dev), ties)
+    got = tf.fold_variant(a_mat, b_mat, b_norm, fold)
+    want = tf.fold_variant_plain(a_mat, b_mat, b_norm, fold)
+    res = tf.agreement(fold, got, want, tf.distances(a_mat, b_mat, b_norm))
+    assert res["ok"], res
+    g1, gi, g2 = (t[0].cpu() for t in got)
+    if fold not in ("gemm", "rowsum", "min1"):
+        assert torch.equal(g1[rows], g2[rows])
+    if fold in ("current", "pipe", "top2idx", "bf16", "slotpack"):
+        assert gi[rows].tolist() == [c for _, _, c, _ in ties]
+
+
+def test_k4_graph_replays_merge_splits():
+    """A CUDA graph of one split launch, replayed: every replay gives the
+    direct call's bits (the row blocks' counters are left at zero)."""
+    from niftymatch_torch.utils import smoke_fold
+
+    dev = cuda_device()
+    assert _k4_splits(4096, 1) > 1
+    a_mat, _, b_mat, b_norm = smoke_fold.operands(4096, 1, dev)
+    direct = tf.fold_variant(a_mat, b_mat, b_norm, "top2idx")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tf.fold_variant(a_mat, b_mat, b_norm, "top2idx")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tf.fold_variant(a_mat, b_mat, b_norm, "top2idx")
+    for _ in range(3):
+        for t in out:
+            t.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(out, direct))
+
+
+@pytest.mark.parametrize("kernel", ["noturns", "k1loop"])
+@pytest.mark.parametrize("fold", tf.FOLDS)
+def test_k4_ablations_match_plain(fold, kernel):
+    """The kernels kept in the timing library for comparison (without the
+    warpgroups' turns, and the K1-loop kernel) still compute each variant (at
+    (4,096, 1))."""
+    from niftymatch_torch.utils import smoke_fold
+
+    dev = cuda_device()
+    a_mat, _, b_mat, b_norm = smoke_fold.operands(4096, 1, dev)
+    got = tf.fold_variant_ablation(a_mat, b_mat, b_norm, fold, kernel)
+    want = tf.fold_variant_plain(a_mat, b_mat, b_norm, fold)
+    res = tf.agreement(fold, got, want, tf.distances(a_mat, b_mat, b_norm))
+    assert res["ok"], res
+
+
 @pytest.mark.parametrize("k,nb", [(1024, 16), (4096, 1)])
 @pytest.mark.parametrize("fold", ["gemm", "rowsum"])
 def test_k4_consume_only_sums(fold, k, nb):
     """``gemm`` and ``rowsum`` with their sums added to 0, not 3.4e38 (which
-    hides every sum), against the plain sums within 1e-4 relative."""
+    hides every sum), against the plain sums within 1e-4 relative; at
+    (4,096, 1) the sums of 4 column splits, ``base`` added once."""
     from niftymatch_torch.utils import smoke_fold
 
     dev = cuda_device()
