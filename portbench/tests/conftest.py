@@ -1,0 +1,9 @@
+"""Tests of the benchmark itself, on the CPU.  Run from the repository's
+root: ``python -m pytest -p no:cacheprovider portbench/tests``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
