@@ -436,7 +436,8 @@ def profiled_launches(fn, top=4):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
     by_name = {}
     for e in events:

@@ -12,6 +12,12 @@ poses; ``slam_chunk`` runs it over a batch of frames with the keyframe
 carry chosen on the device.  Everything stays on the device: no call waits
 on the host.
 
+Under a profiler the stages are ``utils.profiling`` regions: ``nm.slam.chunk``
+holds one ``nm.slam.frame`` a frame, and that holds the frame's
+``nm.slam.frame.{match,ransac_e,ransac_h,select,scale_tri,carry}``;
+``select`` holds ``select.pose_e`` (twice: before and after the polish),
+``select.refine`` (the Gauss-Newton polish) and ``select.pose_h``.
+
 The RANSAC draws: the JAX package runs E-RANSAC with ``key`` and
 H-RANSAC with ``fold_in(key, 1)``, or both from ``jax.random.key(seed)``
 (the same draw) when ``key`` is None, which is what its ``slam_step``
@@ -43,6 +49,7 @@ from ..sfm.triangulation import _det3, depths, recover_pose, triangulate_dlt
 from ..sfm.two_view_refine import refine_relative_pose
 from ..sift import match_pair
 from ..utils.precision import device_constant, f32, resolve_device
+from ..utils.profiling import annotate
 
 
 class TwoViewResult(NamedTuple):
@@ -89,10 +96,11 @@ def estimate_two_view(
     cross-checks matches in both directions before RANSAC (two K1 launches
     on the card).  ``scores_e`` / ``scores_h``: see the module docstring."""
     dev = resolve_device(device)
-    m = match_pair(feats_a, feats_b, ambiguity=ambiguity, device=dev)
-    if mutual:
-        bwd = match_pair(feats_b, feats_a, ambiguity=ambiguity, device=dev)
-        m = m._replace(indices=mutual_matches(m, bwd))
+    with annotate("nm.slam.frame.match"):
+        m = match_pair(feats_a, feats_b, ambiguity=ambiguity, device=dev)
+        if mutual:
+            bwd = match_pair(feats_b, feats_a, ambiguity=ambiguity, device=dev)
+            m = m._replace(indices=mutual_matches(m, bwd))
     return two_view_from_matches(feats_a, feats_b, m, intrinsics, ransac_config,
                                  scores_e=scores_e, scores_h=scores_h, device=dev)
 
@@ -129,14 +137,20 @@ def two_view_from_matches(
     # Run BOTH models (ORB-SLAM-style H/E selection): quasi-planar scenes
     # make E unrecoverable (2-D null space in the 8-point system) but are
     # exactly a homography; general scenes prefer E.
-    res_e = ransac(srcn, dstn, mask, cfg, model="essential", scores=scores_e, device=dev)
-    res_h = ransac(srcn, dstn, mask, cfg, model="homography", scores=scores_h, device=dev)
+    with annotate("nm.slam.frame.ransac_e"):
+        res_e = ransac(srcn, dstn, mask, cfg, model="essential", scores=scores_e, device=dev)
+    with annotate("nm.slam.frame.ransac_h"):
+        res_h = ransac(srcn, dstn, mask, cfg, model="homography", scores=scores_h, device=dev)
+    with annotate("nm.slam.frame.select"):
+        return _select_model(srcn, dstn, mask, m, res_e, res_h, cfg.inlier_threshold, dev)
 
+
+def _select_model(srcn, dstn, mask, m, res_e, res_h, T_thr, dev) -> TwoViewResult:
+    """The E/H choice and the chosen model's pose, inliers and points."""
     # Model selection by truncated symmetric-transfer-error score (the
     # ORB-SLAM heuristic), not inlier count: each masked correspondence
     # contributes max(0, T - err) per direction, and H wins when it holds
     # > 45% of the combined score.
-    T_thr = cfg.inlier_threshold
     H = res_h.transform
     # Adjugate inverse with a nudged singular H: H comes from a masked
     # RANSAC and can be arbitrary when res_h.success is False.
@@ -153,19 +167,23 @@ def two_view_from_matches(
     use_h = res_h.success & ((~res_e.success) | (s_h > 0.45 * (s_h + s_e)))
 
     # Pose from the essential branch, with GN Sampson polish on inliers.
-    rec_e = recover_pose(res_e.transform, srcn, dstn, res_e.inliers)
-    R_e, t_e, _ = refine_relative_pose(rec_e.R, rec_e.t, srcn, dstn,
-                                       res_e.inliers.to(torch.float32))
-    E_gn = hat(t_e) @ R_e
-    inl_gn = (sampson_sq_error(E_gn, srcn, dstn) < cfg.inlier_threshold) & mask
-    keep_gn = inl_gn.sum() >= res_e.inliers.sum()
-    E_e = torch.where(keep_gn, E_gn, res_e.transform)
-    inl_e = torch.where(keep_gn, inl_gn, res_e.inliers)
-    rec_e = recover_pose(E_e, srcn, dstn, inl_e)
+    with annotate("nm.slam.frame.select.pose_e"):
+        rec_e = recover_pose(res_e.transform, srcn, dstn, res_e.inliers)
+    with annotate("nm.slam.frame.select.refine"):
+        R_e, t_e, _ = refine_relative_pose(rec_e.R, rec_e.t, srcn, dstn,
+                                           res_e.inliers.to(torch.float32))
+        E_gn = hat(t_e) @ R_e
+        inl_gn = (sampson_sq_error(E_gn, srcn, dstn) < T_thr) & mask
+        keep_gn = inl_gn.sum() >= res_e.inliers.sum()
+        E_e = torch.where(keep_gn, E_gn, res_e.transform)
+        inl_e = torch.where(keep_gn, inl_gn, res_e.inliers)
+    with annotate("nm.slam.frame.select.pose_e"):
+        rec_e = recover_pose(E_e, srcn, dstn, inl_e)
 
     # Pose from the homography branch (Faugeras decomposition + cheirality).
-    rec_h = recover_pose_homography(res_h.transform, srcn, dstn, res_h.inliers)
-    E_h = hat(rec_h.t) @ rec_h.R
+    with annotate("nm.slam.frame.select.pose_h"):
+        rec_h = recover_pose_homography(res_h.transform, srcn, dstn, res_h.inliers)
+        E_h = hat(rec_h.t) @ rec_h.R
 
     def pick(h, e):
         return torch.where(use_h, h, e)
@@ -248,21 +266,22 @@ def slam_step(
     scores_e, scores_h = (None, None) if scores is None else scores
     tv = estimate_two_view(last_feats, feats, intrinsics, ransac_config,
                            scores_e=scores_e, scores_h=scores_h, device=dev)
-    last_pose = device_constant(last_pose, dev, torch.float32)
-    last_world = device_constant(last_world, dev, torch.float32)
-    has_track = device_constant(has_track, dev, torch.bool)
+    with annotate("nm.slam.frame.scale_tri"):
+        last_pose = device_constant(last_pose, dev, torch.float32)
+        last_world = device_constant(last_world, dev, torch.float32)
+        has_track = device_constant(has_track, dev, torch.bool)
 
-    d_world = se3_apply(last_pose, last_world)[:, 2]
-    d_unit = tv.points[:, 2]
-    ok = has_track & tv.point_valid & (d_unit > 1e-3) & (d_world > 1e-3)
-    ratios = d_world / torch.clamp(d_unit, min=1e-9)
-    scale = torch.where(ok.sum() >= min_scale_obs, masked_median(ratios, ok),
-                        torch.ones_like(ratios[0]))
+        d_world = se3_apply(last_pose, last_world)[:, 2]
+        d_unit = tv.points[:, 2]
+        ok = has_track & tv.point_valid & (d_unit > 1e-3) & (d_world > 1e-3)
+        ratios = d_world / torch.clamp(d_unit, min=1e-9)
+        scale = torch.where(ok.sum() >= min_scale_obs, masked_median(ratios, ok),
+                            torch.ones_like(ratios[0]))
 
-    T_rel = torch.cat([tv.R, (scale * tv.t)[:, None]], dim=-1)
-    pose = se3_compose(T_rel, last_pose)
-    pts_w, valid_w = triangulate_in_world(last_pose, pose, last_feats, feats,
-                                          tv.matches, intrinsics, device=dev)
+        T_rel = torch.cat([tv.R, (scale * tv.t)[:, None]], dim=-1)
+        pose = se3_compose(T_rel, last_pose)
+        pts_w, valid_w = triangulate_in_world(last_pose, pose, last_feats, feats,
+                                              tv.matches, intrinsics, device=dev)
     return SlamStepResult(
         indices=tv.matches.indices,
         inliers=tv.inliers,
@@ -305,7 +324,14 @@ def slam_chunk(
 
     Returns (per-frame ``SlamStepResult`` stacked along a leading axis,
     (B,) bool accepted)."""
-    dev = resolve_device(device)
+    with annotate("nm.slam.chunk"):
+        return _slam_chunk(last_feats, feats_batch, last_pose, last_world, has_track,
+                           intrinsics, ransac_config, min_inliers, min_scale_obs,
+                           anchor_landmarks, scores, resolve_device(device))
+
+
+def _slam_chunk(last_feats, feats_batch, last_pose, last_world, has_track, intrinsics,
+                ransac_config, min_inliers, min_scale_obs, anchor_landmarks, scores, dev):
     carry = (Features(*[device_constant(a, dev) for a in last_feats]),
              device_constant(last_pose, dev, torch.float32),
              device_constant(last_world, dev, torch.float32),
@@ -314,29 +340,32 @@ def slam_chunk(
     cap = carry[2].shape[0]
     outs, accepts = [], []
     for i in range(feats_batch.x.shape[0]):
-        feats_i = Features(*[a[i].to(dev) for a in feats_batch])
-        kf_feats, pose, world, has = carry
-        out = slam_step(kf_feats, feats_i, pose, world, has, intrinsics,
-                        ransac_config, min_scale_obs, scores=scores, device=dev)
-        accept = out.success & (out.num_inliers >= min_inliers)
-        matched = out.inliers & (out.indices >= 0)
-        if anchor_landmarks:
-            sel = matched & (has | out.points_valid)
-            carried = torch.where(has[:, None], world, out.points_w)
-        else:
-            sel = matched & out.points_valid
-            carried = out.points_w
-        # Scatter into a (cap + 1) buffer whose last row takes every
-        # unselected slot (the only duplicate target: mutual matches are
-        # one-to-one), then drop that row.
-        tgt = torch.where(sel, out.indices.long(), cap)
-        new_world = torch.zeros((cap + 1, 3), dtype=world.dtype, device=dev)
-        new_world = new_world.index_copy_(0, tgt, carried)[:cap]
-        new_has = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
-        new_has = new_has.index_fill_(0, tgt, True)[:cap]
-        cand = (feats_i, out.pose, new_world, new_has)
-        carry = (Features(*[torch.where(accept, n, o) for n, o in zip(cand[0], kf_feats)]),
-                 *[torch.where(accept, n, o) for n, o in zip(cand[1:], carry[1:])])
+        with annotate("nm.slam.frame"):
+            feats_i = Features(*[a[i].to(dev) for a in feats_batch])
+            kf_feats, pose, world, has = carry
+            out = slam_step(kf_feats, feats_i, pose, world, has, intrinsics,
+                            ransac_config, min_scale_obs, scores=scores, device=dev)
+            with annotate("nm.slam.frame.carry"):
+                accept = out.success & (out.num_inliers >= min_inliers)
+                matched = out.inliers & (out.indices >= 0)
+                if anchor_landmarks:
+                    sel = matched & (has | out.points_valid)
+                    carried = torch.where(has[:, None], world, out.points_w)
+                else:
+                    sel = matched & out.points_valid
+                    carried = out.points_w
+                # Scatter into a (cap + 1) buffer whose last row takes every
+                # unselected slot (the only duplicate target: mutual matches
+                # are one-to-one), then drop that row.
+                tgt = torch.where(sel, out.indices.long(), cap)
+                new_world = torch.zeros((cap + 1, 3), dtype=world.dtype, device=dev)
+                new_world = new_world.index_copy_(0, tgt, carried)[:cap]
+                new_has = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+                new_has = new_has.index_fill_(0, tgt, True)[:cap]
+                cand = (feats_i, out.pose, new_world, new_has)
+                carry = (Features(*[torch.where(accept, n, o)
+                                    for n, o in zip(cand[0], kf_feats)]),
+                         *[torch.where(accept, n, o) for n, o in zip(cand[1:], carry[1:])])
         outs.append(out)
         accepts.append(accept)
     return SlamStepResult(*[torch.stack(f) for f in zip(*outs)]), torch.stack(accepts)

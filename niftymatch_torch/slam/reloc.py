@@ -25,6 +25,7 @@ import torch
 from ..features import Features
 from ..ops.match import mutual_ratio_match
 from ..utils.precision import host_fetch
+from ..utils.profiling import annotate
 from .frontend import SlamStepResult, slam_step
 from .keyframe import Keyframe
 
@@ -108,7 +109,11 @@ class Relocalizer:
         best count reaches ``min_inliers``, verify against the top
         ``VERIFY_K`` distinct keyframes and re-anchor at the best success
         (one more fetch).  Returns the frame's info dict, or None when
-        recovery fails."""
+        recovery fails.  Under a profiler: the region ``nm.slam.reloc``."""
+        with annotate("nm.slam.reloc"):
+            return self._relocalize(feats)
+
+    def _relocalize(self, feats: Features) -> dict | None:
         sys_ = self._sys
         cfg = sys_.config
         if min(len(sys_.keyframes), cfg.reloc_window) < 1:

@@ -21,6 +21,14 @@ keyframes' match counts proposes candidate pairs, verified closures become
 Sim(3) pose-graph edges, and the optimised graph redistributes the drift;
 ``finalize`` alternates closure with global BA.
 
+Under a profiler the tracking loop's stages are ``utils.profiling``
+regions: ``nm.slam.upload``, ``nm.slam.detect``, ``nm.slam.chunk`` (its
+frames' stages: ``frontend.py``), ``nm.slam.fetch`` (the chunk's one
+wait), ``nm.slam.absorb``, ``nm.slam.reloc``, ``nm.slam.window_ba.pack``,
+``nm.slam.window_ba.solve`` and ``nm.slam.ba_fetch``; each window-BA solve
+adds to the counters ``ba.solves`` and ``ba.obs_updates`` (its real
+observations times ``ba.max_iterations``).
+
 The RANSAC draw: one (scores_e, scores_h) pair serves every frame and
 every relocalisation verify (the JAX package reuses the draw of
 ``jax.random.key(seed)`` on every frame, for both models); pass it as
@@ -41,6 +49,7 @@ from ..ops.warp import remap, undistort_map
 from ..sfm.ba import BAProblem, bundle_adjust
 from ..sfm.se3 import se3_identity
 from ..sift import detect_and_describe, detect_and_describe_batch
+from ..utils import profiling
 from ..utils.precision import device_constant, host_fetch, resolve_device
 from .closure import LoopCloser
 from .frontend import _draw_pair, slam_chunk, slam_step
@@ -140,10 +149,11 @@ class SlamSystem:
     def _images(self, frames) -> torch.Tensor:
         """(B, H, W) frames (uint8 stays uint8 on the upload) as float32 on
         the device, undistorted when the config has distortion."""
-        imgs = torch.as_tensor(frames).to(self.device, non_blocking=True)
-        imgs = imgs.to(torch.float32)
-        if self._undist is not None:
-            imgs = remap(imgs.permute(1, 2, 0), *self._undist).permute(2, 0, 1)
+        with profiling.annotate("nm.slam.upload"):
+            imgs = torch.as_tensor(frames).to(self.device, non_blocking=True)
+            imgs = imgs.to(torch.float32)
+            if self._undist is not None:
+                imgs = remap(imgs.permute(1, 2, 0), *self._undist).permute(2, 0, 1)
         return imgs
 
     def process_frame(self, image) -> dict:
@@ -164,14 +174,16 @@ class SlamSystem:
         results: List[dict] = []
         start = 0
         if not self.keyframes:
-            feats0 = detect_and_describe(self._images(frames[:1])[0], self._sift,
-                                         device=self.device)
+            img0 = self._images(frames[:1])[0]
+            with profiling.annotate("nm.slam.detect"):
+                feats0 = detect_and_describe(img0, self._sift, device=self.device)
             results.append(self._first_keyframe(feats0))
             start = 1
         while start < len(frames):
             batch = frames[start:start + chunk]
-            feats_b = detect_and_describe_batch(self._images(batch), self._sift,
-                                                device=self.device)
+            imgs = self._images(batch)
+            with profiling.annotate("nm.slam.detect"):
+                feats_b = detect_and_describe_batch(imgs, self._sift, device=self.device)
             results.extend(self._chunk(feats_b))
             start += len(batch)
         return results
@@ -223,62 +235,66 @@ class SlamSystem:
         Accepted frames' features are staged into the store and written at
         its next flush, after which nothing references the chunk batch."""
         pending, self._pending_ba = self._pending_ba, None
-        host = host_fetch(accepts, outs.num_inliers, outs.indices, outs.inliers,
-                          outs.points_w, outs.points_valid, feats_b.x, feats_b.y,
-                          *((pending[0],) if pending is not None else ()))
-        if pending is not None:
-            active = pending[2]
-            self.track_positions[active] = host[8][: len(active)]
-        acc, ninl, m_idx, inl, pts_w, valid_w, xs, ys = host[:8]
-        results: List[dict] = []
-        acc_rows: List[int] = []   # chunk rows accepted as keyframes
-        acc_kfs: List[Keyframe] = []
+        with profiling.annotate("nm.slam.fetch"):
+            host = host_fetch(accepts, outs.num_inliers, outs.indices, outs.inliers,
+                              outs.points_w, outs.points_valid, feats_b.x, feats_b.y,
+                              *((pending[0],) if pending is not None else ()))
+        with profiling.annotate("nm.slam.absorb"):
+            if pending is not None:
+                active = pending[2]
+                self.track_positions[active] = host[8][: len(active)]
+            acc, ninl, m_idx, inl, pts_w, valid_w, xs, ys = host[:8]
+            results: List[dict] = []
+            acc_rows: List[int] = []   # chunk rows accepted as keyframes
+            acc_kfs: List[Keyframe] = []
 
-        def commit_rows():
-            if acc_rows:
-                slots = self._store.stage_chunk(feats_b, acc_rows)
-                for kf_, slot_ in zip(acc_kfs, slots):
-                    kf_.slot = slot_
-                acc_rows.clear()
-                acc_kfs.clear()
+            def commit_rows():
+                if acc_rows:
+                    slots = self._store.stage_chunk(feats_b, acc_rows)
+                    for kf_, slot_ in zip(acc_kfs, slots):
+                        kf_.slot = slot_
+                    acc_rows.clear()
+                    acc_kfs.clear()
 
-        n = len(acc)
-        for i in range(n):
-            if not bool(acc[i]):
-                self.reloc.note_miss()
-                if self.reloc.due():
-                    commit_rows()
-                    info = self.reloc.maybe_relocalize(Features(*[a[i] for a in feats_b]))
-                    if info is not None:
-                        results.append(info)
-                        # The rest of this chunk tracked the old keyframe
-                        # carry: run it again against the new anchor.
-                        if i + 1 < n:
-                            rest = Features(*[a[i + 1:] for a in feats_b])
-                            results.extend(self.process_features_batch(rest))
-                        return results
-                results.append({"keyframe": False, "num_inliers": int(ninl[i]), "tracked": 0})
-                continue
-            self.reloc.reset()
-            last = self.keyframes[-1]
-            kf = Keyframe(
-                index=len(self.keyframes),
-                store=self._store,
-                slot=-1,  # assigned by commit_rows()
-                pose=outs.pose[i],
-                track_ids=np.full((xs.shape[1],), -1, np.int64),
-                host_x=xs[i],
-                host_y=ys[i],
-            )
-            acc_rows.append(i)
-            acc_kfs.append(kf)
-            tracked = self._propagate_tracks(last, kf, m_idx=m_idx[i], inl=inl[i],
-                                             pts_w=pts_w[i], valid_w=valid_w[i])
-            self.keyframes.append(kf)
-            results.append({"keyframe": True, "num_inliers": int(ninl[i]),
-                            "tracked": tracked})
-            self._frames_since_ba += 1
-        commit_rows()
+            n = len(acc)
+            for i in range(n):
+                if not bool(acc[i]):
+                    self.reloc.note_miss()
+                    if self.reloc.due():
+                        commit_rows()
+                        info = self.reloc.maybe_relocalize(
+                            Features(*[a[i] for a in feats_b]))
+                        if info is not None:
+                            results.append(info)
+                            # The rest of this chunk tracked the old keyframe
+                            # carry: run it again against the new anchor.
+                            if i + 1 < n:
+                                rest = Features(*[a[i + 1:] for a in feats_b])
+                                results.extend(self.process_features_batch(rest))
+                            return results
+                    results.append({"keyframe": False, "num_inliers": int(ninl[i]),
+                                    "tracked": 0})
+                    continue
+                self.reloc.reset()
+                last = self.keyframes[-1]
+                kf = Keyframe(
+                    index=len(self.keyframes),
+                    store=self._store,
+                    slot=-1,  # assigned by commit_rows()
+                    pose=outs.pose[i],
+                    track_ids=np.full((xs.shape[1],), -1, np.int64),
+                    host_x=xs[i],
+                    host_y=ys[i],
+                )
+                acc_rows.append(i)
+                acc_kfs.append(kf)
+                tracked = self._propagate_tracks(last, kf, m_idx=m_idx[i], inl=inl[i],
+                                                 pts_w=pts_w[i], valid_w=valid_w[i])
+                self.keyframes.append(kf)
+                results.append({"keyframe": True, "num_inliers": int(ninl[i]),
+                                "tracked": tracked})
+                self._frames_since_ba += 1
+            commit_rows()
         if self._frames_since_ba >= self.config.ba_every and len(self.keyframes) >= 3:
             self.run_windowed_ba()
             self._frames_since_ba = 0
@@ -291,12 +307,15 @@ class SlamSystem:
         if not self.keyframes:
             return self._first_keyframe(feats)
         last = self.keyframes[-1]
-        out = slam_step(last.feats, feats, last.pose, *self._context(last), self.intrinsics,
-                        self.config.ransac, scores=self.scores(feats), device=self.device)
+        with profiling.annotate("nm.slam.frame"):
+            out = slam_step(last.feats, feats, last.pose, *self._context(last),
+                            self.intrinsics, self.config.ransac, scores=self.scores(feats),
+                            device=self.device)
         pending, self._pending_ba = self._pending_ba, None
-        host = host_fetch(out.success, out.num_inliers, out.indices, out.inliers,
-                          out.points_w, out.points_valid, feats.x, feats.y,
-                          *((pending[0],) if pending is not None else ()))
+        with profiling.annotate("nm.slam.fetch"):
+            host = host_fetch(out.success, out.num_inliers, out.indices, out.inliers,
+                              out.points_w, out.points_valid, feats.x, feats.y,
+                              *((pending[0],) if pending is not None else ()))
         if pending is not None:
             active = pending[2]
             self.track_positions[active] = host[8][: len(active)]
@@ -397,7 +416,8 @@ class SlamSystem:
         float32 buffer (uploaded without a wait) packing, in order, the
         observations' uv, camera, landmark and valid flag (``max_obs``
         rows), the landmarks (``ba_landmarks_cap``) and the fixed-pose mask.
-        Returns ((poses, buf), active track ids, window) or Nones."""
+        Returns ((poses, buf, the real observations' count), active track
+        ids, window) or Nones."""
         C = len(window)
         cfg = self.config
         ids = np.stack([kf.track_ids for kf in window])  # (C, N)
@@ -442,12 +462,14 @@ class SlamSystem:
         if C > 1:
             fixed[1] = 1.0  # pin the 7-DoF monocular gauge
         poses = [kf.pose for kf in window]
-        return (poses, device_constant(buf, self.device)), active, window
+        return (poses, device_constant(buf, self.device), O), active, window
 
-    def _ba_gated(self, pose_list, buf):
+    def _ba_gated(self, pose_list, buf, n_obs):
         """Window BA on the packed problem with the accept on the device: a
         solve that does not lower the cost gives back its input, so the
         host never waits on it."""
+        profiling.count("ba.solves")
+        profiling.count("ba.obs_updates", n_obs * self.config.ba.max_iterations)
         O_cap, L_cap = self.config.max_obs, self.config.ba_landmarks_cap
         o2, o3, o4, o5 = 2 * O_cap, 3 * O_cap, 4 * O_cap, 5 * O_cap
         poses = torch.stack(pose_list)
@@ -511,10 +533,13 @@ class SlamSystem:
         result on the device, and the landmarks ride the NEXT fetch.  Pass
         ``block=True`` (or call :meth:`flush_ba`) to harvest them now."""
         self.flush_ba()  # at most one solve in flight; seeds must be current
-        problem, active, window = self._window_problem(self.keyframes[-self.config.ba_window:])
+        with profiling.annotate("nm.slam.window_ba.pack"):
+            problem, active, window = self._window_problem(
+                self.keyframes[-self.config.ba_window:])
         if problem is None:
             return False
-        poses, lms, stats = self._ba_gated(*problem)
+        with profiling.annotate("nm.slam.window_ba.solve"):
+            poses, lms, stats = self._ba_gated(*problem)
         for ci, kf in enumerate(window):
             kf.pose = poses[ci]
         self._pending_ba = (lms, stats, active)
@@ -528,5 +553,6 @@ class SlamSystem:
             return
         lms, _, active = self._pending_ba
         self._pending_ba = None
-        (lms_h,) = host_fetch(lms)
+        with profiling.annotate("nm.slam.ba_fetch"):
+            (lms_h,) = host_fetch(lms)
         self.track_positions[active] = lms_h[: len(active)]

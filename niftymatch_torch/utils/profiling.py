@@ -2,11 +2,21 @@
 JAX package:
 
 * :func:`trace`: ``torch.profiler`` around a block, written as a Chrome
-  trace (``trace.json`` in the directory given; Perfetto reads it);
+  trace (``trace.json`` in the directory given; Perfetto reads it) with the
+  block's counters beside it (``counters.json``);
 * :func:`annotate`: a named region in that trace
-  (``torch.profiler.record_function``);
+  (``torch.profiler.record_function``), opened only while a profiler
+  records;
+* :func:`count` / :func:`counts`: named counters of host-side facts (never
+  a device value), kept only while a profiler records;
 * :func:`roofline`: the measured time of a matmul-shaped call against the
   card's peak tensor-core rate and memory rate.
+
+Tracing is on exactly when a ``torch.profiler`` records, whoever started
+it: no setting turns it on.  Off, :func:`annotate` and :func:`count` cost
+one flag check each.  The program's regions are named
+``nm.<layer>.<stage>[.<sub-stage>]``, dotted by parent, so a prefix selects
+a stage and all of its children; its counters ``<layer>.<quantity>``.
 
 The peaks are keyed by the card's name (``torch.cuda.get_device_name``);
 an unknown card raises rather than borrow another device's numbers.
@@ -16,9 +26,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 # NVIDIA's H100 SXM data sheet, dense rates at the 700 W power limit.
@@ -27,22 +39,46 @@ PEAKS = {
 }
 
 
+_OFF = contextlib.nullcontext()
+_COUNTS: dict = {}
+
+
+def _recording() -> bool:
+    return _autograd_profiler._is_profiler_enabled
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """``with trace(dir): run()`` writes ``dir/trace.json`` (host and, on a
-    card, device activity)."""
+    card, device activity) and ``dir/counters.json`` (:func:`counts` of the
+    block)."""
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    _COUNTS.clear()
     with profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "counters.json"), "w") as f:
+        json.dump(counts(), f, indent=1, sort_keys=True)
 
 
 def annotate(name: str):
-    """A named region of the trace."""
-    return record_function(name)
+    """A named region of the trace while a profiler records; otherwise one
+    shared null context."""
+    return record_function(name) if _recording() else _OFF
+
+
+def count(name: str, n=1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if _recording():
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counts() -> dict:
+    """A copy of the counters (reset by :func:`trace` on entry)."""
+    return dict(_COUNTS)
 
 
 @dataclasses.dataclass

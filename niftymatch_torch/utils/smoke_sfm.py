@@ -96,7 +96,9 @@ def profile(fn, dev, detail=False):
                 (e.name, " <- ".join(_port_frames(e))) for e in waits).most_common():
             print(f"  wait {n:5d} x {name}: {frames}")
     raw = prof.profiler.kineto_results.events()
-    gpu = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA]
+    # A record_function region is drawn on the device's timeline too: not an op.
+    gpu = [e for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation()]
     copies = sum(1 for e in gpu if e.name().startswith(("Memcpy", "Memset")))
     return {"kernels": len(gpu) - copies, "copies_and_sets": copies,
             "device_ms": sum(e.duration_ns() for e in gpu) / 1e6,

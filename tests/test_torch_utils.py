@@ -5,8 +5,8 @@ against ``tests/test_profiling.py`` and ``tests/test_checkpoint.py``.
 On the CPU the times are the host's clock and mean nothing for a card;
 these tests hold the accounting: the roofline's rates follow from its
 counts and the measured time (exactly, with the peaks given explicitly),
-an unknown card raises, the trace holds the annotated region, and a
-pytree round trip returns its leaves bit for bit.
+an unknown card raises, the trace holds the annotated region and its
+counters, and a pytree round trip returns its leaves bit for bit.
 """
 
 import json
@@ -68,9 +68,11 @@ def test_trace_holds_the_annotated_region(tmp_path):
     with profiling.trace(str(tmp_path)):
         with profiling.annotate("test-region"):
             x = torch.ones(8, 8) * 2
+            profiling.count("test.count", 3)
     assert float(x.sum()) == 128.0
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "test-region" for e in events)
+    assert json.loads((tmp_path / "counters.json").read_text()) == {"test.count": 3}
 
 
 @pytest.mark.parametrize("as_tensors", [False, True])
