@@ -102,7 +102,18 @@ Phases (any failed check raises, so the script exits non-zero):
      (8c) ``global_ba`` on 8b's map (applied, or rejected with its cost
      above the start); (8d) a checkpoint of that map restored into a fresh
      system (trajectory within 1e-6, the last track ids equal), which then
-     processes one more frame;
+     processes one more frame; (8e) the two-view polish kernel
+     (``kernels/refine.py``, ``csrc/refine.cu``) on the inputs that 8b's
+     loop passes it, taken from ``estimate_two_view`` on consecutive
+     frames of 8b's clip (the E-RANSAC pose and its inliers over the
+     loop's 1,024 slots): against the same polish in float64
+     (``refine_float64``; cost within 1e-3 of itself, R and t within
+     5e-3: fp32 cannot pin these small-baseline poses closer, see
+     ``REFINE_POSE_ATOL``), with the fp32 ``refine_relative_pose_plain``'s
+     distances printed beside, per pair, and a rerun (bit for bit); its
+     ms in a graph of one launch and of 20, with no steps (the launch's
+     floor), and the plain version's ms; 8b's timed
+     run launches it once a ``slam_step`` (half K1's count);
   9. SLAM loop closure on the card (``niftymatch_torch/utils/smoke_closure.py``):
      (9a) the 12-keyframe closed loop of ``tests/test_slam_e2e.py`` on the
      card and on the CPU with one injected draw (candidates equal up to
@@ -137,7 +148,7 @@ Phases (any failed check raises, so the script exits non-zero):
 Prints a ``{"geometry": ...}`` line, an ``{"sfm": ...}`` line, a
 ``{"slam": ...}`` line, a ``{"closure": ...}`` line, a ``{"parallel": ...}``
 line, a ``{"dataset": ...}`` line, a ``{"kernels": [...]}`` line (K1-K3
-with their launches in phase 4 and, as ``slam_launches``,
+and the polish ``refine_gn`` with their launches in phase 4 and, as ``slam_launches``,
 ``closure_launches``, ``ring_launches`` and ``dataset_launches``, in 8b's
 timed run, 9b's whole run, 10a's world-1 path (``shard_detect`` and one
 mutual ring sweep) and 10d's run from disk; each K4 variant with its
@@ -188,6 +199,29 @@ K3_OPS_PER_BIN = 2
 # and the checks' shapes (k, pairs, B rows) of no tile's multiple.
 K4_SHAPES = ((1024, 16), (4096, 1))
 K4_ODD_SHAPES = ((1000, 3, 1000), (1000, 2, 1))
+# fp32 operations of the polish (``csrc/refine.cu``) a correspondence, a
+# fused multiply-add counted as two.  The Sampson residual at an E: l0, l1,
+# l2, lp0, lp1 and the numerator 4 each, the squared norm 7, its clamp and
+# square root 2.  A cost pass adds 4 (the quotient, w r^2 and the add); a
+# step's Jacobian pass adds 179: sqrt(max(w, 0)) 2, r 2, c 1, q 2, the two
+# vectors 6, the 3 x 3 gradient over E 36, its contractions with the five
+# derivative matrices 90, the 15 + 5 sums 40.  A polish is one cost pass
+# and, each step, a Jacobian pass and a cost pass; it reads 20 bytes a
+# correspondence and R0, t0 once, and writes R, t and the cost.
+REFINE_OPS_RESIDUAL = 33
+REFINE_OPS_COST = REFINE_OPS_RESIDUAL + 4
+REFINE_OPS_JACOBIAN = REFINE_OPS_RESIDUAL + 179
+REFINE_ITERATIONS = 10          # refine_relative_pose's default, as the SLAM calls it
+REFINE_PAIRS = 8                # consecutive frame pairs of 8b's clip
+# 8e's bars against the float64 polish.  On 8b's small-baseline pairs the
+# cost valley is flat to fp32: two fp32 implementations of the same steps
+# end up to ~1e-3 apart in R and t (the plain fp32 version 4.3e-4 from the
+# float64 answer after 10 steps, 1.2e-3 after 40) at costs within 3e-4 of
+# each other, while a wrong rotation Jacobian moves R/t by 3e-2 and the
+# cost by 2e-2.  So the cost carries the check (the polish lowers it by
+# 6-142 %), and R/t is bounded between the two.
+REFINE_COST_RTOL = 1e-3
+REFINE_POSE_ATOL = 5e-3
 
 
 def make_scene(h, w, seed, n_blobs, device):
@@ -586,7 +620,7 @@ def mosaic_phase(nt, dev):
           f"one add_frame: {launches}")
     assert all(i["registered"] for i in infos), "a mosaic frame did not register"
     assert launches == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
-                        "k2_orientation_hist": 1, "k3_descriptor": 1}, \
+                        "k2_orientation_hist": 1, "k3_descriptor": 1, "refine_gn": 0}, \
         "add_frame did not launch K1 twice and K2 and K3 once"
     chain_err = float(np.abs(corners_of(mb.frame_to_canvas())
                              - corners_of(anchor @ np.linalg.inv(truths[0]) @ truths[-1])).max())
@@ -681,6 +715,133 @@ def check_k4(shape, ops, errs, dev, only=None):
                   f"{d.shape[0] * d.shape[1]}; a second run equal bit for bit")
             assert res["ok"], f"k4 {v} (base {base:g}) at {shape} disagrees: {res}"
     return got
+
+
+def refine_float64(R0, t0, pts_a, pts_b, weights, iterations, damping=1e-6):
+    """``sfm.two_view_refine``'s polish in float64: the same damped steps,
+    accepts and damping, its Sampson residual and retraction, a float64
+    Rodrigues exponential and solve.  The exact answer that 8e holds the
+    fp32 kernel and the fp32 plain version to."""
+    import torch
+    from torch.func import jacfwd
+
+    from niftymatch_torch.sfm import two_view_refine as tr
+    from niftymatch_torch.sfm.se3 import hat
+
+    def so3_exp(phi):
+        th2 = (phi * phi).sum()
+        th = torch.sqrt(th2 + 1e-300)
+        small = th2 < 1e-2
+        a = torch.where(small, 1 - th2 / 6 + th2 * th2 / 120, torch.sin(th) / th)
+        b = torch.where(small, 0.5 - th2 / 24 + th2 * th2 / 720,
+                        (1 - torch.cos(th)) / torch.clamp(th2, min=1e-300))
+        k = hat(phi)
+        return torch.eye(3, dtype=phi.dtype, device=phi.device) + a * k + b * (k @ k)
+
+    R0, t0, pa, pb, w = (x.to(torch.float64) for x in (R0, t0, pts_a, pts_b, weights))
+    sw = torch.sqrt(torch.clamp(w, min=0.0))
+
+    def cost_of(R, t):
+        return (w * tr._sampson_residuals(hat(t) @ R, pa, pb) ** 2).sum()
+
+    def residuals_of(p, R, t):
+        E = hat(tr._retract_t(t, p[3:])) @ (so3_exp(p[:3]) @ R)
+        return sw * tr._sampson_residuals(E, pa, pb)
+
+    R, t, cost = R0, t0, cost_of(R0, t0)
+    lam = torch.full((), damping, dtype=torch.float64, device=R0.device)
+    zero = torch.zeros(5, dtype=torch.float64, device=R0.device)
+    eye5 = torch.eye(5, dtype=torch.float64, device=R0.device)
+    for _ in range(iterations):
+        J = jacfwd(residuals_of)(zero, R, t)
+        step = -torch.linalg.solve(J.T @ J + (lam + 1e-9) * eye5, J.T @ residuals_of(zero, R, t))
+        Rn, tn = so3_exp(step[:3]) @ R, tr._retract_t(t, step[3:])
+        new_cost = cost_of(Rn, tn)
+        accept = new_cost < cost
+        R, t = torch.where(accept, Rn, R), torch.where(accept, tn, t)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 10.0), 1e-10, 1e4)
+    return R, t, cost
+
+
+def refine_phase(nt, clip, dev):
+    """8e: the polish kernel against the exact (float64) polish and its
+    fp32 plain version on the card, on the inputs that 8b's SLAM loop
+    passes it; ms of both, the bound and the floor of one launch.  Returns
+    the kernels line's numbers."""
+    import torch
+    from unittest import mock
+
+    from niftymatch_torch.features import Features
+    from niftymatch_torch.kernels import refine as kr
+    from niftymatch_torch.sfm.two_view_refine import refine_relative_pose_plain
+    from niftymatch_torch.slam import frontend
+
+    cfg = clip["config"]
+    sift = nt.SiftConfig(width=cfg.width, height=cfg.height,
+                         max_features=cfg.detector_features)
+    imgs = torch.as_tensor(clip["frames"][:REFINE_PAIRS + 1]).to(dev).to(torch.float32)
+    batch = nt.detect_and_describe_batch(imgs, sift, device=dev)
+    views = [Features(*[f[i] for f in batch]) for i in range(REFINE_PAIRS + 1)]
+    with mock.patch.object(frontend, "refine_relative_pose",
+                           wraps=frontend.refine_relative_pose) as polish:
+        for a, b in zip(views, views[1:]):
+            nt.estimate_two_view(a, b, cfg.intrinsics, cfg.ransac, device=dev)
+    inputs = [c.args for c in polish.call_args_list]
+    assert len(inputs) == REFINE_PAIRS, f"8e: {len(inputs)} polishes for {REFINE_PAIRS} pairs"
+    n = inputs[0][2].shape[0]
+    assert n == cfg.detector_features, f"8e: the polish got {n} correspondences"
+    # The kernel and the fp32 plain version against the float64 polish, per
+    # pair; the bars are REFINE_COST_RTOL and REFINE_POSE_ATOL's.
+    def gaps(got, want):
+        err = max((got[k].double() - want[k].double()).abs().max().item() for k in (0, 1))
+        return err, abs(got[2].item() - want[2].item()) / max(abs(want[2].item()), 1e-30)
+
+    errs = {"max_abs_err": 0.0, "cost_rel_err": 0.0, "plain_abs_err": 0.0,
+            "plain_cost_rel_err": 0.0, "kernel_vs_plain": 0.0}
+    inliers, per_pair = [], []
+    for args in inputs:
+        got = kr.refine_relative_pose(*args, iterations=REFINE_ITERATIONS)
+        again = kr.refine_relative_pose(*args, iterations=REFINE_ITERATIONS)
+        plain = refine_relative_pose_plain(*args, iterations=REFINE_ITERATIONS)
+        exact = refine_float64(*args, iterations=REFINE_ITERATIONS)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(got, again)), \
+            "refine_gn differs between two runs"
+        pair = (*gaps(got, exact), *gaps(plain, exact), gaps(got, plain)[0])
+        per_pair.append(pair)
+        for key, v in zip(("max_abs_err", "cost_rel_err", "plain_abs_err",
+                           "plain_cost_rel_err", "kernel_vs_plain"), pair):
+            errs[key] = max(errs[key], v)
+        inliers.append(int(args[4].sum().item()))
+    print("[slam] 8e per pair, against the float64 polish (kernel R/t, cost; plain R/t, "
+          "cost; kernel against plain R/t): " + "; ".join(
+              " ".join(f"{v:.2e}" for v in pair) for pair in per_pair))
+    assert errs["cost_rel_err"] <= REFINE_COST_RTOL and errs["max_abs_err"] <= REFINE_POSE_ATOL, \
+        (f"refine_gn disagrees with the float64 polish: R/t {errs['max_abs_err']:.3e}, "
+         f"cost {errs['cost_rel_err']:.3e}")
+    # Timed on the pair with the most inliers.
+    args = inputs[int(np.argmax(inliers))]
+    ms = graph_ms(lambda: kr.refine_relative_pose(*args, iterations=REFINE_ITERATIONS), 20)
+    ms_in_run = graph_ms(lambda: kr.refine_relative_pose(*args, iterations=REFINE_ITERATIONS),
+                         20, launches=20)
+    ms_floor = graph_ms(lambda: kr.refine_relative_pose(*args, iterations=0), 20)
+    plain_ms = cuda_ms(lambda: refine_relative_pose_plain(*args, iterations=REFINE_ITERATIONS),
+                       3)
+    ops = n * (REFINE_OPS_COST + REFINE_ITERATIONS * (REFINE_OPS_JACOBIAN + REFINE_OPS_COST))
+    nbytes = 20 * n + 4 * (9 + 3) + 4 * (9 + 3 + 1)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"[slam] 8e refine_gn on 8b's frames 0-{REFINE_PAIRS} ({REFINE_PAIRS} pairs, N = {n}, "
+          f"inliers {inliers}): against the float64 polish R/t max abs err "
+          f"{errs['max_abs_err']:.3e} (the fp32 plain version's {errs['plain_abs_err']:.3e}; "
+          f"kernel against plain {errs['kernel_vs_plain']:.3e}), cost rel err "
+          f"{errs['cost_rel_err']:.3e} (plain {errs['plain_cost_rel_err']:.3e}); a rerun equal "
+          f"bit for bit; {ms:.5f} ms a launch ({ms_in_run:.5f} in a graph of 20, "
+          f"{ms_floor:.5f} with no steps), plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}: {nbytes} bytes, {ops} ops)")
+    return {**errs, "n": n, "inliers": inliers, "ms": ms, "ms_in_run": ms_in_run,
+            "ms_no_steps": ms_floor, "plain_ms": plain_ms, "bound": (bound_ms, bound_by),
+            "bytes": nbytes, "ops": ops}
 
 
 def card_line():
@@ -841,8 +1002,8 @@ def main():
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[batch] launches in one 8-pair chunk: {launches}")
-    assert launches == {k: int(k != "k1_match_top2_bf16") for k in launches}, \
-        "a kernel of the path did not run once"
+    assert launches == {k: int(k not in ("k1_match_top2_bf16", "refine_gn"))
+                        for k in launches}, "a kernel of the path did not run once"
     halves = [Features(*[t[:CHUNK] for t in fbatch]),
               Features(*[t[CHUNK:] for t in fbatch])]
     _build.reset_launches()
@@ -1037,6 +1198,11 @@ def main():
     slam_launches = slam["loop"]["timed_launches"]
     for name in ("k1_match_top2", "k2_orientation_hist", "k3_descriptor"):
         assert slam_launches[name] > 0, f"{name} did not run in the SLAM loop"
+    assert 2 * slam_launches["refine_gn"] == slam_launches["k1_match_top2"], \
+        f"8b did not launch the polish once a slam_step: {slam_launches}"
+    refine = refine_phase(nt, clip_8b, dev)
+    errs["refine"] = refine["max_abs_err"]
+    bounds["refine"] = (*refine["bound"], refine["bytes"], refine["ops"], None)
     phase_s["8"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 9. SLAM loop closure ----------------------------------------------
@@ -1045,7 +1211,7 @@ def main():
     closure, store_9b, cfg_9b = smoke_closure.run(dev)
     closure_launches = closure["golden"]["launches"]
     for name in ("k1_match_top2", "k1_match_top2_bf16", "k2_orientation_hist",
-                 "k3_descriptor"):
+                 "k3_descriptor", "refine_gn"):
         assert closure_launches[name] > 0, f"{name} did not run in the closed loop"
     phase_s["9"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
@@ -1104,6 +1270,11 @@ def main():
             "niftymatch_tpu/pallas/windows.py:161", k2_ms, k2_plain, None),
         row("k3", "k3_descriptor", "niftymatch_torch/csrc/descriptors.cu",
             "niftymatch_tpu/pallas/windows.py:363", k3_ms, k3_plain, None),
+        {**row("refine", "refine_gn", "niftymatch_torch/csrc/refine.cu", None,
+               refine["ms"], refine["plain_ms"], None),
+         "n": refine["n"], "cost_rel_err": refine["cost_rel_err"],
+         "plain_abs_err": refine["plain_abs_err"], "kernel_vs_plain": refine["kernel_vs_plain"],
+         "ms_in_run": refine["ms_in_run"], "ms_no_steps": refine["ms_no_steps"]},
     ] + [k4_row(v) for v in k4.FOLDS]
     print(json.dumps({"e2e": {"chunk_ms": chunk_ms, "keyframes_per_s": kf_s,
                               "host_chunk_ms": 1e3 * host_s / TIMED_CHUNKS,

@@ -7,6 +7,11 @@ the inlier correspondences: the step between RANSAC's minimal-sample E and
 bundle adjustment.  Fixed iteration count, accept/reject by ``torch.where``
 on the device; the Jacobian is forward mode (``torch.func.jacfwd``), as the
 JAX file's ``jax.jacfwd``.
+
+CPU tensors run that code, the plain version.  CUDA tensors run the whole
+polish as one kernel (``kernels/refine.py``, ``csrc/refine.cu``) with an
+analytic Jacobian: the plain version's ~590 launches a step left the SLAM
+loop bound by the host's launch rate.
 """
 
 from __future__ import annotations
@@ -15,7 +20,9 @@ import torch
 from torch.func import jacfwd
 
 from ..geometry.linalg import cholesky_solve_small
+from ..kernels import refine as _kernel
 from ..utils.precision import f32
+from ..utils.profiling import count
 from .se3 import hat, so3_exp
 
 
@@ -66,6 +73,20 @@ def refine_relative_pose(R0, t0, pts_a, pts_b, weights, iterations: int = 10,
       iterations: fixed GN iterations (accept/reject on the device).
 
     Returns (R, t, final_cost)."""
+    count("refine.calls")
+    if R0.device.type == "cuda":
+        count("refine.fused")
+        return _kernel.refine_relative_pose(R0, t0, pts_a, pts_b, weights,
+                                            iterations, damping)
+    return refine_relative_pose_plain(R0, t0, pts_a, pts_b, weights,
+                                      iterations, damping)
+
+
+@f32
+def refine_relative_pose_plain(R0, t0, pts_a, pts_b, weights,
+                               iterations: int = 10, damping: float = 1e-6):
+    """:func:`refine_relative_pose` in plain PyTorch on any device: the
+    kernel's counterpart, which CPU tensors take."""
     w = weights
     sw = torch.sqrt(torch.clamp(w, min=0.0))
 

@@ -190,11 +190,13 @@ def two_view_phase(dev):
     assert float(np.median(r_errs)) < 0.2, r_errs
     if dev.type == "cuda":
         assert detect_launches == {"k1_match_top2": 0, "k1_match_top2_bf16": 0,
-                                   "k2_orientation_hist": 1, "k3_descriptor": 1}, \
+                                   "k2_orientation_hist": 1, "k3_descriptor": 1,
+                                   "refine_gn": 0}, \
             "detection of the batch did not launch K2 and K3 once"
         assert all(la == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
-                          "k2_orientation_hist": 0, "k3_descriptor": 0}
-                   for la in pair_launches), "estimate_two_view did not launch K1 twice"
+                          "k2_orientation_hist": 0, "k3_descriptor": 0, "refine_gn": 1}
+                   for la in pair_launches), \
+            "estimate_two_view did not launch K1 twice and the polish once"
 
     calls = [(one[i], one[i + 1]) for i in range(pairs)]
     times = ms_each(lambda ab: nt.estimate_two_view(*ab, intr, rcfg, device=dev), calls, dev)

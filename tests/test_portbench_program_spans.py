@@ -59,12 +59,14 @@ EXPECTED = {
     "host_wait_ms.frames": (50 + 10) / 2,
     "pageable_dtoh.frames": 1 / 2,                    # the one inside a program span
     "idle_covered_share.frames": 100.0 * 300 / 500,
+    "refine_fused_share.frames": 100.0 * 3 / 4,       # refine.fused over refine.calls
 }
+COUNTERS = {"ba.obs_updates": 1000, "ba.solves": 1, "refine.calls": 4, "refine.fused": 3}
 
 
 @pytest.mark.parametrize("metric", sorted(EXPECTED))
 def test_reader_of_program_spans(metric, monkeypatch):
-    monkeypatch.setattr(profiling, "_COUNTS", {"ba.obs_updates": 1000, "ba.solves": 1})
+    monkeypatch.setattr(profiling, "_COUNTS", dict(COUNTERS))
     read = harness.reader(metric).read
     assert read(_trace(), INFO) == pytest.approx(EXPECTED[metric])
     assert read(_trace(program_spans=False), INFO) is None
@@ -77,4 +79,12 @@ def test_every_reader_is_declared_for_the_track_cell():
         m = declared[name]
         assert m["workloads"] == ["track.slam640"] and m["moves"] == "frames_per_s"
         assert m["layer"] == "SLAM"
-        assert m["source"] == ("program_counter" if name.startswith("ba_") else "program_span")
+        counter = name.startswith(("ba_", "refine_"))
+        assert m["source"] == ("program_counter" if counter else "program_span")
+
+
+def test_refine_share_reads_nothing_without_its_counters(monkeypatch):
+    """A program that opens the spans but keeps no polish counters (the
+    SLAM loop before the fused polish) leaves the share unread."""
+    monkeypatch.setattr(profiling, "_COUNTS", {"ba.obs_updates": 1000, "ba.solves": 1})
+    assert harness.reader("refine_fused_share.frames").read(_trace(), INFO) is None

@@ -7,8 +7,11 @@ import shutil
 
 import pytest
 
+import torch
+
 import chip_smoke
 from niftymatch_torch.kernels import _build
+from niftymatch_torch.kernels import refine as krefine
 
 
 @pytest.fixture
@@ -61,12 +64,36 @@ def test_every_kernel_has_a_counter_and_flags():
     assert set(_build.EXTRA_FLAGS) == set(_build.SOURCES)
     assert _build.EXTRA_FLAGS["windows"] == ["-fmad=false"]
     assert set(_build.LAUNCHES) == {"k1_match_top2", "k1_match_top2_bf16",
-                                    "k2_orientation_hist", "k3_descriptor"}
+                                    "k2_orientation_hist", "k3_descriptor",
+                                    "refine_gn"}
+    assert "refine" in _build.SOURCES and _build.EXTRA_FLAGS["refine"] == []
     assert set(_build.K4_LAUNCHES) == {f"k4_fold_{f}" for f in _build.K4_FOLDS}
     _build.LAUNCHES["k3_descriptor"] = 3
     _build.K4_LAUNCHES["k4_fold_pipe"] = 2
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values()) and not any(_build.K4_LAUNCHES.values())
+
+
+def _no_build(*args, **kwargs):
+    raise AssertionError("a CUDA library was built or loaded")
+
+
+@pytest.mark.parametrize("bad", ["cpu", "shape", "iterations"])
+def test_refine_wrapper_refuses_bad_inputs_before_building(monkeypatch, bad):
+    """The polish kernel's wrapper takes CUDA tensors of the documented
+    shapes only, and refuses anything else before it builds or launches."""
+    monkeypatch.setattr(_build, "load", _no_build)
+    monkeypatch.setattr(_build, "build_all", _no_build)
+    args = [torch.eye(3), torch.tensor([1.0, 0.0, 0.0]), torch.zeros(8, 2),
+            torch.zeros(8, 2), torch.ones(8)]
+    kw = {}
+    if bad == "shape":
+        args[4] = torch.ones(7)
+    if bad == "iterations":
+        kw["iterations"] = -1
+    with pytest.raises(ValueError):
+        krefine.refine_relative_pose(*args, **kw)
+    assert _build.LAUNCHES["refine_gn"] == 0
 
 
 @pytest.mark.parametrize("products,rate,nbytes,want_ms", [

@@ -20,7 +20,11 @@ with its CPU run (cost traces within 1e-3, poses within 1e-3) and passes
 ``chip_smoke.py``'s phase 7 at small sizes; dense BA and the pose graphs
 give the same bits on every run.  ``slam_step`` on the card agrees with
 its CPU run (matches, inliers and success equal, pose and world points
-within 1e-3) and the SLAM system passes phase 8a.  K4's nine fold
+within 1e-3) and the SLAM system passes phase 8a.  The fused two-view
+polish agrees with the plain ``jacfwd`` polish on the CPU (R and t within
+1e-4, cost within 1e-3 relative; analytic against forward-mode
+derivatives, sums in another order), is one launch with no host wait and
+gives the same bits on every run.  K4's nine fold
 variants agree with their plain versions under ``kernels.fold.agreement``
 and give the same bits on every run, also split across CTAs, with ties
 across splits and in graph replays; the all-pairs sweep in bf16 lies
@@ -155,7 +159,7 @@ def test_slice_on_card_matches_cpu():
     _build.reset_launches()
     ga, gb, gm = nt.make_pair_pipeline(pcfg, device=dev)(img_a, img_b)
     torch.cuda.synchronize()
-    expected = {k: int(k != "k1_match_top2_bf16") for k in _build.LAUNCHES}
+    expected = {k: int(k not in ("k1_match_top2_bf16", "refine_gn")) for k in _build.LAUNCHES}
     assert _build.LAUNCHES == expected, _build.LAUNCHES
     ca, cb, cm = nt.make_pair_pipeline(pcfg, device="cpu")(img_a, img_b)
     for g, c in ((ga, ca), (gb, cb)):
@@ -535,7 +539,8 @@ def test_mosaic_add_frame_launches_and_registers():
         torch.cuda.synchronize()
         assert info["registered"], info
         assert _build.LAUNCHES == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
-                                   "k2_orientation_hist": 1, "k3_descriptor": 1}
+                                   "k2_orientation_hist": 1, "k3_descriptor": 1,
+                                   "refine_gn": 0}
     h = mb.frame_to_canvas()
     np.testing.assert_allclose(h[:2, 2] - np.array([(320 - W) / 2, (240 - H) / 2]),
                                [28, 20], atol=1.0)
@@ -587,6 +592,108 @@ def test_two_view_on_card_matches_cpu():
         assert np.abs(np_(r.R) - R_true).max() < 0.02
     np.testing.assert_allclose(np_(got.R), np_(want.R), atol=1e-3)
     np.testing.assert_allclose(np_(got.t), np_(want.t), atol=1e-3)
+
+
+def _refine_scene(rng, n, t_dir=(0.8, 0.1, -0.2), noise=5e-4):
+    """``tests/test_torch_sfm.py``'s two-view scene (camera B = (R, t), unit
+    t, normalised observations with noise) with R from the port's
+    ``so3_exp``: the world points and the truth (R, t)."""
+    from niftymatch_torch.sfm.se3 import so3_exp
+
+    R = so3_exp(torch.tensor([0.05, -0.12, 0.03])).numpy()
+    t = np.asarray(t_dir, np.float64)
+    t = (t / np.linalg.norm(t)).astype(np.float32)
+    X = rng.uniform(-1.5, 1.5, size=(n, 3))
+    X[:, 2] = 5.0 + rng.uniform(-1.0, 2.0, n)
+    X = X.astype(np.float32)
+    Xb = X @ R.T + t
+    xa = (X[:, :2] / X[:, 2:] + rng.normal(0, noise, (n, 2))).astype(np.float32)
+    xb = (Xb[:, :2] / Xb[:, 2:] + rng.normal(0, noise, (n, 2))).astype(np.float32)
+    return R, t, xa, xb
+
+
+def _refine_start(R, t, dr=(0.01, -0.02, 0.015), dt=(0.03, -0.02, 0.05)):
+    from niftymatch_torch.sfm.se3 import so3_exp
+
+    R0 = so3_exp(torch.tensor(dr, dtype=torch.float32)).numpy() @ R
+    t0 = t + np.asarray(dt, np.float32)
+    return R0.astype(np.float32), (t0 / np.linalg.norm(t0)).astype(np.float32)
+
+
+def _refine_case(case):
+    """(R0, t0, pts_a, pts_b, weights) of one card case."""
+    from niftymatch_torch.sfm.two_view_refine import refine_relative_pose
+
+    rng = np.random.default_rng(7)
+    if case in ("n96_binary", "n96_soft", "at_optimum", "far_start"):
+        R, t, xa, xb = _refine_scene(rng, 96)     # |t_x| = 0.96: basis on e_y
+        R0, t0 = _refine_start(R, t)
+        if case == "n96_binary":
+            w = (rng.uniform(size=96) > 0.2).astype(np.float32)
+        elif case == "n96_soft":
+            w = rng.uniform(0.2, 1.0, 96).astype(np.float32)
+        else:
+            w = np.ones(96, np.float32)
+        if case == "at_optimum":   # steps of ~1e-7: so3_exp's Taylor branch
+            R0, t0, _ = refine_relative_pose(*(torch.from_numpy(a) for a in (R0, t0, xa, xb, w)))
+            R0, t0 = R0.numpy(), t0.numpy()
+        if case == "far_start":    # a first step past theta = 0.1: sin and cos
+            R0, t0 = _refine_start(R, t, dr=(0.15, -0.2, 0.1))
+        return R0, t0, xa, xb, w
+    n = {"n1024_zeros": 1024, "all_zero": 1024, "tx_branch": 300, "n3000": 3000}[case]
+    t_dir = (-0.95, 0.2, 0.1) if case == "tx_branch" else (0.3, -0.2, 0.93)
+    R, t, xa, xb = _refine_scene(rng, n, t_dir)
+    R0, t0 = _refine_start(R, t)
+    w = {"n1024_zeros": (rng.uniform(size=n) > 0.4).astype(np.float32),
+         "all_zero": np.zeros(n, np.float32)}.get(case, np.ones(n, np.float32))
+    return R0, t0, xa, xb, w
+
+
+@pytest.mark.parametrize("case", ["n96_binary", "n96_soft", "n1024_zeros", "all_zero",
+                                  "tx_branch", "at_optimum", "far_start", "n3000"])
+def test_refine_kernel_matches_plain(case):
+    """The fused polish on the card against the plain ``jacfwd`` polish on
+    the CPU: R and t within 1e-4, the cost within 1e-3 relative.  The
+    cases: ``tests/test_torch_sfm.py``'s scene at n = 96 with binary and
+    soft weights, N = 1,024 with ~40 % zero weights, all weights zero, both
+    branches of ``_tangent_basis`` (|t_x| below and above 0.9), a start at
+    the optimum (Taylor branch of ``so3_exp``), a start ~0.27 rad off
+    (its generic branch), and N = 3,000, past the shared-memory stage."""
+    from niftymatch_torch.sfm.two_view_refine import refine_relative_pose
+
+    dev = cuda_device()
+    arrays = _refine_case(case)
+    want = refine_relative_pose(*(torch.from_numpy(a) for a in arrays))
+    _build.reset_launches()
+    got = refine_relative_pose(*(torch.from_numpy(a).to(dev) for a in arrays))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["refine_gn"] == 1
+    np.testing.assert_allclose(np_(got[0]), np_(want[0]), atol=1e-4)
+    np.testing.assert_allclose(np_(got[1]), np_(want[1]), atol=1e-4)
+    np.testing.assert_allclose(np_(got[2]), np_(want[2]), rtol=1e-3, atol=0)
+
+
+def test_refine_kernel_one_launch_no_sync_same_bits():
+    """One polish is exactly one ``refine_gn`` launch and nothing else
+    counted, waits for nothing on the host (sync debug mode "error"), and
+    gives the same bits on a rerun."""
+    from niftymatch_torch.sfm.two_view_refine import refine_relative_pose
+
+    dev = cuda_device()
+    args = [torch.from_numpy(a).to(dev) for a in _refine_case("n1024_zeros")]
+    refine_relative_pose(*args)        # builds and loads the library
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = refine_relative_pose(*args)
+        second = refine_relative_pose(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES}, "refine_gn": 2}
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_bundle_adjust_on_card_matches_cpu():

@@ -37,6 +37,7 @@ MODULES = [
     "niftymatch_torch.kernels._build",
     "niftymatch_torch.kernels.fold",
     "niftymatch_torch.kernels.match",
+    "niftymatch_torch.kernels.refine",
     "niftymatch_torch.kernels.windows",
     "niftymatch_torch.mosaic",
     "niftymatch_torch.ops",

@@ -16,6 +16,7 @@ import pytest
 import torch
 from torch.func import jacfwd, vmap
 
+from niftymatch_torch.kernels import _build
 from niftymatch_torch.sfm import homography as th
 from niftymatch_torch.sfm import posegraph as tp
 from niftymatch_torch.sfm import se3 as ts
@@ -27,6 +28,7 @@ from niftymatch_tpu.sfm import posegraph as jp
 from niftymatch_tpu.sfm import se3 as js
 from niftymatch_tpu.sfm import sim3 as jsim
 from niftymatch_tpu.sfm import triangulation as jtri
+from niftymatch_torch.utils import profiling
 from niftymatch_tpu.sfm import two_view_refine as jref
 from torch_parity import assert_close_up_to_sign, np_
 
@@ -301,3 +303,49 @@ def test_refine_relative_pose_matches_jax(rng, weights):
     _close(tg, tw, 1e-4)
     _close(cg, cw, 0, rtol=1e-3)
     _close(Rg, R, 1e-2)
+
+
+@pytest.mark.parametrize("weights", ["binary", "soft"])
+def test_smoke_float64_polish_takes_the_plain_steps(rng, weights):
+    """``chip_smoke.refine_float64``, the exact polish that the card's smoke
+    holds the kernel to, takes the plain version's steps: on the JAX test's
+    scene, where fp32 rounding moves nothing, the two agree to 1e-5."""
+    import chip_smoke
+
+    X, R, t, Tb, xa, xb = _two_view_scene(rng, n=96, noise=5e-4)
+    R0 = np.asarray(ts.so3_exp(_t(np.array([0.01, -0.02, 0.015], np.float32)))) @ R
+    t0 = t + np.array([0.03, -0.02, 0.05], np.float32)
+    t0 = (t0 / np.linalg.norm(t0)).astype(np.float32)
+    if weights == "binary":
+        w = (rng.uniform(size=len(xa)) > 0.2).astype(np.float32)
+    else:
+        w = rng.uniform(0.2, 1.0, len(xa)).astype(np.float32)
+    args = [_t(a.astype(np.float32)) for a in (R0, t0, xa, xb, w)]
+    Rg, tg, cg = tref.refine_relative_pose_plain(*args)
+    Rx, tx, cx = chip_smoke.refine_float64(*args, iterations=10)
+    assert Rx.dtype == tx.dtype == cx.dtype == torch.float64
+    _close(Rg.double(), Rx, 1e-5)
+    _close(tg.double(), tx, 1e-5)
+    _close(cg.double(), cx, 0, rtol=1e-4)
+    _close(Rx, torch.from_numpy(R).double(), 1e-2)
+
+
+def test_refine_on_cpu_takes_the_plain_path_and_counts(rng, monkeypatch, tmp_path):
+    """CPU tensors run the plain ``jacfwd`` polish: no CUDA library is built
+    or loaded and no kernel launch is counted; under a profiler each call
+    adds one to ``refine.calls`` and nothing to ``refine.fused``."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("the CPU path built or loaded a CUDA library")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    _build.reset_launches()
+    _, R, t, _, xa, xb = _two_view_scene(rng, n=32)
+    args = [_t(a) for a in (R, t, xa, xb, np.ones(32, np.float32))]
+    with profiling.trace(str(tmp_path)):
+        for _ in range(3):
+            Rg, tg, _ = tref.refine_relative_pose(*args, iterations=2)
+        counted = profiling.counts()
+    assert counted == {"refine.calls": 3}
+    assert _build.LAUNCHES["refine_gn"] == 0
+    assert Rg.device.type == tg.device.type == "cpu"

@@ -139,7 +139,8 @@ def test_ba_counters_count_each_solve(sessions):
     _, (*_, cfg), solves, counted, logdir, _ = sessions
     assert len(solves) == 2 and all(0 < o < cfg.max_obs for o in solves)
     assert counted == {"ba.solves": len(solves),
-                       "ba.obs_updates": sum(solves) * cfg.ba.max_iterations}
+                       "ba.obs_updates": sum(solves) * cfg.ba.max_iterations,
+                       "refine.calls": 8 - 1}   # one polish a tracked frame, on the CPU
     assert json.loads((logdir / "counters.json").read_text()) == counted
 
 
