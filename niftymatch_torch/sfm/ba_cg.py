@@ -35,6 +35,17 @@ The dense window solver (``ba.py``) stores the camera-landmark coupling
   and the ``active`` flag stay device tensors combined with
   ``torch.where``, so no iteration waits on the host.  The LM loop around
   it is the dense solver's (``ba.lm_loop``).
+
+Under a profiler (``utils.profiling``) a solve is the region
+``nm.ba.solve``, holding ``nm.ba.layout`` (the observation layout and the
+re-order) and, each LM iteration, ``nm.ba.linearize`` (Jacobians, block
+sums, ``H_ll^-1``, the right-hand side and the preconditioner),
+``nm.ba.pcg`` (the CG loop) and ``nm.ba.backsub`` (the landmark
+back-substitution); the LM loop's candidate costs fall in ``nm.ba.solve``
+itself.  Its counters: ``ba_cg.solves``, ``ba_cg.lm_iterations``,
+``ba_cg.cg_iterations`` (the loop's fixed count), and
+``ba_cg.observations``, ``ba_cg.cameras`` and ``ba_cg.landmarks`` (from
+the shapes).
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import torch
 
 from ..config import BAConfig
 from ..geometry.linalg import inv3x3
+from ..utils import profiling
 from ..utils.precision import f32, resolve_device, state_to
 from .ba import (
     BAProblem,
@@ -233,83 +245,86 @@ def _schur_pcg_step(problem: BAProblem, lay: ObsLayout, lam: torch.Tensor,
     devices of a landmark-sharded solver.  Returns (dxi (C, 6), dX (L, 3))."""
     cam, lm = problem.obs_cam.long(), problem.obs_lm.long()
 
-    Jc, Jl, r_w = _linearize(problem, config.huber_delta)
+    with profiling.annotate("nm.ba.linearize"):
+        Jc, Jl, r_w = _linearize(problem, config.huber_delta)
 
-    # Block-diagonal terms (materialised: O(C + L), small).
-    eye6 = torch.eye(6, dtype=Jc.dtype, device=Jc.device)
-    eye3 = torch.eye(3, dtype=Jc.dtype, device=Jc.device)
-    Hcc = reduce_fn(
-        seg_sum_cam_exact(torch.einsum("oij,oik->ojk", Jc, Jc), lay)
-    ) + (lam + 1e-8) * eye6
-    Hll = seg_sum_lm_exact(torch.einsum("oij,oik->ojk", Jl, Jl), lay) \
-        + (lam + 1e-8) * eye3
-    Hll_inv = inv3x3(Hll)
-    b_c = -reduce_fn(seg_sum_cam_exact(_mtv(Jc, r_w), lay))
-    b_l = -seg_sum_lm_exact(_mtv(Jl, r_w), lay)
+        # Block-diagonal terms (materialised: O(C + L), small).
+        eye6 = torch.eye(6, dtype=Jc.dtype, device=Jc.device)
+        eye3 = torch.eye(3, dtype=Jc.dtype, device=Jc.device)
+        Hcc = reduce_fn(
+            seg_sum_cam_exact(torch.einsum("oij,oik->ojk", Jc, Jc), lay)
+        ) + (lam + 1e-8) * eye6
+        Hll = seg_sum_lm_exact(torch.einsum("oij,oik->ojk", Jl, Jl), lay) \
+            + (lam + 1e-8) * eye3
+        Hll_inv = inv3x3(Hll)
+        b_c = -reduce_fn(seg_sum_cam_exact(_mtv(Jc, r_w), lay))
+        b_l = -seg_sum_lm_exact(_mtv(Jl, r_w), lay)
 
-    free = (~problem.pose_fixed).to(Jc.dtype)[:, None]      # (C, 1)
+        free = (~problem.pose_fixed).to(Jc.dtype)[:, None]      # (C, 1)
 
-    def w_t_apply(v):
-        """W^T v: camera-space (C, 6) -> landmark-space (L, 3)."""
-        return seg_reduce_lm(_mtv(Jl, _mv(Jc, v[cam])), lay)
+        def w_t_apply(v):
+            """W^T v: camera-space (C, 6) -> landmark-space (L, 3)."""
+            return seg_reduce_lm(_mtv(Jl, _mv(Jc, v[cam])), lay)
 
-    def w_apply(z):
-        """W z (local shard): landmark-space (L, 3) -> camera (C, 6)."""
-        return seg_reduce_cam(_mtv(Jc, _mv(Jl, z[lm])), lay)
+        def w_apply(z):
+            """W z (local shard): landmark-space (L, 3) -> camera (C, 6)."""
+            return seg_reduce_cam(_mtv(Jc, _mv(Jl, z[lm])), lay)
 
-    def S_apply(v):
-        v = v * free
-        Hv = torch.einsum("cij,cj->ci", Hcc, v)
-        y = _mv(Hll_inv, w_t_apply(v))
-        # In a distributed solver this is THE per-iteration collective:
-        # (C, 6) floats over the devices.
-        out = (Hv - reduce_fn(w_apply(y))) * free
-        # Fixed poses act as identity rows (keeps S positive definite).
-        return out + v * (1.0 - free)
+        def S_apply(v):
+            v = v * free
+            Hv = torch.einsum("cij,cj->ci", Hcc, v)
+            y = _mv(Hll_inv, w_t_apply(v))
+            # In a distributed solver this is THE per-iteration collective:
+            # (C, 6) floats over the devices.
+            out = (Hv - reduce_fn(w_apply(y))) * free
+            # Fixed poses act as identity rows (keeps S positive definite).
+            return out + v * (1.0 - free)
 
-    # rhs = b_c - W H_ll^-1 b_l, gauge rows zeroed.
-    rhs = (b_c - reduce_fn(w_apply(_mv(Hll_inv, b_l)))) * free
+        # rhs = b_c - W H_ll^-1 b_l, gauge rows zeroed.
+        rhs = (b_c - reduce_fn(w_apply(_mv(Hll_inv, b_l)))) * free
 
-    # Exact block-Jacobi of S (one obs per (cam, lm) pair in BA):
-    # G_o = A_o Hll_inv[lm_o] A_o^T with A_o = J_c^T J_l.
-    A = torch.einsum("oic,oil->ocl", Jc, Jl)                # (O, 6, 3)
-    G = (A @ Hll_inv[lm]) @ A.transpose(1, 2)               # (O, 6, 6)
-    corr = reduce_fn(seg_sum_cam_exact(G, lay))
-    P = torch.where(problem.pose_fixed[:, None, None], eye6, Hcc - corr)
-    # Damped blocks are SPD; a plain inverse is fine at 6x6 (``inv_ex``
-    # does not check, so it does not wait on the host).
-    P_inv = torch.linalg.inv_ex(P + 1e-6 * eye6).inverse
+        # Exact block-Jacobi of S (one obs per (cam, lm) pair in BA):
+        # G_o = A_o Hll_inv[lm_o] A_o^T with A_o = J_c^T J_l.
+        A = torch.einsum("oic,oil->ocl", Jc, Jl)                # (O, 6, 3)
+        G = (A @ Hll_inv[lm]) @ A.transpose(1, 2)               # (O, 6, 6)
+        corr = reduce_fn(seg_sum_cam_exact(G, lay))
+        P = torch.where(problem.pose_fixed[:, None, None], eye6, Hcc - corr)
+        # Damped blocks are SPD; a plain inverse is fine at 6x6 (``inv_ex``
+        # does not check, so it does not wait on the host).
+        P_inv = torch.linalg.inv_ex(P + 1e-6 * eye6).inverse
 
-    def precond(v):
-        return torch.einsum("cij,cj->ci", P_inv, v)
+        def precond(v):
+            return torch.einsum("cij,cj->ci", P_inv, v)
 
-    # --- PCG with a branchless convergence freeze ---
-    rhs_norm = torch.sqrt((rhs * rhs).sum())
-    tol = config.cg_tol * torch.clamp(rhs_norm, min=1e-30)
-    x = torch.zeros_like(rhs)
-    rr = rhs
-    p = precond(rr)
-    rz = (rr * p).sum()
-    active = rhs_norm > 0
-    for _ in range(config.cg_iterations):
-        Ap = S_apply(p)
-        denom = (p * Ap).sum()
-        alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1.0)
-        x_n = x + alpha * p
-        r_n = rr - alpha * Ap
-        z_n = precond(r_n)
-        rz_n = (r_n * z_n).sum()
-        beta = rz_n / torch.where(torch.abs(rz) > 1e-30, rz, 1.0)
-        p_n = z_n + beta * p
-        keep = active & (torch.sqrt((r_n * r_n).sum()) > tol)
-        x = torch.where(active, x_n, x)
-        rr = torch.where(active, r_n, rr)
-        p = torch.where(active, p_n, p)
-        rz = torch.where(active, rz_n, rz)
-        active = keep
+    with profiling.annotate("nm.ba.pcg"):
+        # --- PCG with a branchless convergence freeze ---
+        rhs_norm = torch.sqrt((rhs * rhs).sum())
+        tol = config.cg_tol * torch.clamp(rhs_norm, min=1e-30)
+        x = torch.zeros_like(rhs)
+        rr = rhs
+        p = precond(rr)
+        rz = (rr * p).sum()
+        active = rhs_norm > 0
+        for _ in range(config.cg_iterations):
+            Ap = S_apply(p)
+            denom = (p * Ap).sum()
+            alpha = rz / torch.where(torch.abs(denom) > 1e-30, denom, 1.0)
+            x_n = x + alpha * p
+            r_n = rr - alpha * Ap
+            z_n = precond(r_n)
+            rz_n = (r_n * z_n).sum()
+            beta = rz_n / torch.where(torch.abs(rz) > 1e-30, rz, 1.0)
+            p_n = z_n + beta * p
+            keep = active & (torch.sqrt((r_n * r_n).sum()) > tol)
+            x = torch.where(active, x_n, x)
+            rr = torch.where(active, r_n, rr)
+            p = torch.where(active, p_n, p)
+            rz = torch.where(active, rz_n, rz)
+            active = keep
 
-    # Landmark back-substitution: dX = H_ll^-1 (b_l - W^T dxi).
-    dX = _mv(Hll_inv, b_l - w_t_apply(x * free))
+    with profiling.annotate("nm.ba.backsub"):
+        # Landmark back-substitution: dX = H_ll^-1 (b_l - W^T dxi).
+        dX = _mv(Hll_inv, b_l - w_t_apply(x * free))
     return x * free, dX
 
 
@@ -321,21 +336,29 @@ def bundle_adjust_cg(problem: BAProblem, config: BAConfig = BAConfig(),
     The same interface as ``bundle_adjust``; scales to global problems
     (memory O(O + C + L), never O(C L)).  Runs on ``device`` (CUDA by
     default), to which the problem's fields are moved."""
-    problem = state_to(problem, resolve_device(device))
-    init_cost = ba_cost(problem, config.huber_delta)
+    with profiling.annotate("nm.ba.solve"):
+        problem = state_to(problem, resolve_device(device))
+        init_cost = ba_cost(problem, config.huber_delta)
 
-    # Re-order observations once (invalid rows keep w=0 and contribute
-    # zeros to every reduction, so they can sit anywhere in the order).
-    C = problem.poses.shape[0]
-    L = problem.landmarks.shape[0]
-    lay = build_obs_layout(problem.obs_cam, problem.obs_lm, C, L)
-    o = lay.order_lm
-    sorted_problem = problem._replace(
-        obs_uv=problem.obs_uv[o],
-        obs_cam=lay.cam_sorted,
-        obs_lm=lay.lm_sorted,
-        obs_valid=problem.obs_valid[o],
-    )
-    prob, stats = lm_loop(sorted_problem, init_cost, config,
-                          lambda prob, lam: _schur_pcg_step(prob, lay, lam, config))
+        # Re-order observations once (invalid rows keep w=0 and contribute
+        # zeros to every reduction, so they can sit anywhere in the order).
+        C = problem.poses.shape[0]
+        L = problem.landmarks.shape[0]
+        with profiling.annotate("nm.ba.layout"):
+            lay = build_obs_layout(problem.obs_cam, problem.obs_lm, C, L)
+            o = lay.order_lm
+            sorted_problem = problem._replace(
+                obs_uv=problem.obs_uv[o],
+                obs_cam=lay.cam_sorted,
+                obs_lm=lay.lm_sorted,
+                obs_valid=problem.obs_valid[o],
+            )
+        prob, stats = lm_loop(sorted_problem, init_cost, config,
+                              lambda prob, lam: _schur_pcg_step(prob, lay, lam, config))
+    profiling.count("ba_cg.solves")
+    profiling.count("ba_cg.lm_iterations", config.max_iterations)
+    profiling.count("ba_cg.cg_iterations", config.max_iterations * config.cg_iterations)
+    profiling.count("ba_cg.observations", problem.obs_cam.shape[0])
+    profiling.count("ba_cg.cameras", C)
+    profiling.count("ba_cg.landmarks", L)
     return problem._replace(poses=prob.poses, landmarks=prob.landmarks), stats
