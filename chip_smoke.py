@@ -2,6 +2,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py linalg     # phase 8f alone, with its build
 
 Builds the hand-written kernels from ``niftymatch_torch/csrc`` and drives the
 port's main path, the flagship forward step: SIFT detect + describe on
@@ -113,7 +114,15 @@ Phases (any failed check raises, so the script exits non-zero):
      distances printed beside, per pair, and a rerun (bit for bit); its
      ms in a graph of one launch and of 20, with no steps (the launch's
      floor), and the plain version's ms; 8b's timed
-     run launches it once a ``slam_step`` (half K1's count);
+     run launches it once a ``slam_step`` (half K1's count); (8f) the
+     small-matrix solvers' kernels (``kernels/linalg.py``,
+     ``csrc/linalg.cu``: ``svd3x3`` over 512 3 x 3 matrices,
+     ``smallest_eigvec`` over 512 9 x 9 DLT normal matrices and 8 x 1,024
+     4 x 4 triangulation systems, ``utils/smoke_linalg.py``) against their
+     plain versions on the card and a rerun (bit for bit), with each
+     kernel's ms in a graph of one launch and of 20, its floor (no sweeps
+     or iterations), its bound, the plain version's ms and
+     ``torch.linalg.svd`` / ``eigh`` at the same batch;
   9. SLAM loop closure on the card (``niftymatch_torch/utils/smoke_closure.py``):
      (9a) the 12-keyframe closed loop of ``tests/test_slam_e2e.py`` on the
      card and on the CPU with one injected draw (candidates equal up to
@@ -147,8 +156,8 @@ Phases (any failed check raises, so the script exits non-zero):
 
 Prints a ``{"geometry": ...}`` line, an ``{"sfm": ...}`` line, a
 ``{"slam": ...}`` line, a ``{"closure": ...}`` line, a ``{"parallel": ...}``
-line, a ``{"dataset": ...}`` line, a ``{"kernels": [...]}`` line (K1-K3
-and the polish ``refine_gn`` with their launches in phase 4 and, as ``slam_launches``,
+line, a ``{"dataset": ...}`` line, a ``{"kernels": [...]}`` line (K1-K3,
+the polish ``refine_gn`` and the small-matrix solvers with their launches in phase 4 and, as ``slam_launches``,
 ``closure_launches``, ``ring_launches`` and ``dataset_launches``, in 8b's
 timed run, 9b's whole run, 10a's world-1 path (``shard_detect`` and one
 mutual ring sweep) and 10d's run from disk; each K4 variant with its
@@ -222,6 +231,26 @@ REFINE_PAIRS = 8                # consecutive frame pairs of 8b's clip
 # 6-142 %), and R/t is bounded between the two.
 REFINE_COST_RTOL = 1e-3
 REFINE_POSE_ATOL = 5e-3
+# fp32 operations of the small-matrix solvers (``csrc/linalg.cu``) a
+# matrix, a fused multiply-add counted as two and a transcendental, a
+# square root or a division as one.  svd3x3: E^T E 45 and its symmetrising
+# 6; a rotation 7 for its angle (two subtractions, a product, the atan2,
+# the half, the cosine, the sine) and 54 for A's columns and rows and V's
+# columns, three a sweep; then the square roots 3, U's columns 54, the two
+# normalisations 14 each, the projection 11, the cross product 9 and the
+# sign 5.  smallest_eigvec at n: the trace and jitter n + 3, the factor
+# n(n+1)(2n+1)/6 multiply-adds counted as two and n square roots and
+# n(n-1)/2 divisions, and an iteration two substitutions of n^2 operations
+# and n divisions each, the norm 2n + 1 and the scaling n + 1.
+SVD3X3_OPS = 51 + 3 + 54 + 14 * 2 + 11 + 9 + 5
+SVD3X3_OPS_SWEEP = 3 * (7 + 54)
+LINALG_SWEEPS = 12             # svd3x3's default, as every caller runs it
+LINALG_ITERATIONS = 8          # smallest_eigvec's default, as every caller runs it
+
+
+def eigvec_ops(n, iterations=LINALG_ITERATIONS):
+    factor = n * (n + 1) * (2 * n + 1) // 3 + n + n * (n - 1) // 2
+    return n + 3 + factor + iterations * (2 * (n * n + n) + 3 * n + 2)
 
 
 def make_scene(h, w, seed, n_blobs, device):
@@ -620,8 +649,10 @@ def mosaic_phase(nt, dev):
           f"one add_frame: {launches}")
     assert all(i["registered"] for i in infos), "a mosaic frame did not register"
     assert launches == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
-                        "k2_orientation_hist": 1, "k3_descriptor": 1, "refine_gn": 0}, \
-        "add_frame did not launch K1 twice and K2 and K3 once"
+                        "k2_orientation_hist": 1, "k3_descriptor": 1, "refine_gn": 0,
+                        "svd3x3": 0, "smallest_eigvec": 2}, \
+        ("add_frame did not launch K1 twice, K2 and K3 once and smallest_eigvec "
+         "twice")
     chain_err = float(np.abs(corners_of(mb.frame_to_canvas())
                              - corners_of(anchor @ np.linalg.inv(truths[0]) @ truths[-1])).max())
     canvas = mb.result()
@@ -844,6 +875,59 @@ def refine_phase(nt, clip, dev):
             "bytes": nbytes, "ops": ops}
 
 
+def linalg_phase(dev):
+    """The small-matrix solvers' kernels (``kernels/linalg.py``,
+    ``csrc/linalg.cu``) at the SLAM frame's shapes: ``smoke_linalg``'s
+    comparison with the plain versions (raises outside its tolerances),
+    then each kernel's ms in a graph of one launch and of 20, its latency
+    floor (the kernel with no sweeps or no iterations, in a graph of 20),
+    its bound, the plain version's ms (eager, as CPU tensors take it) and
+    ``torch.linalg.svd`` / ``eigh`` at the same batch, the library
+    yardstick that the port never calls.  Returns the kernels line's rows."""
+    import torch
+
+    from niftymatch_torch.geometry import linalg as gl
+    from niftymatch_torch.kernels import linalg as kl
+    from niftymatch_torch.utils import smoke_linalg
+
+    result = smoke_linalg.compare(dev)
+    print(f"[linalg] kernels against the plain versions: {json.dumps(result)}")
+    smoke_linalg.check(result)
+    E = smoke_linalg.svd_inputs(dev)
+    A9 = smoke_linalg.eig9_inputs(dev)
+    A4 = smoke_linalg.eig4_inputs(dev)
+    cases = (
+        ("svd3x3", E, lambda: kl.svd3x3(E), lambda: kl.svd3x3(E, sweeps=0),
+         lambda: gl.svd3x3_plain(E), lambda: torch.linalg.svd(E),
+         SVD3X3_OPS + LINALG_SWEEPS * SVD3X3_OPS_SWEEP, 4 * (9 + 9 + 3 + 9)),
+        ("smallest_eigvec_n9", A9, lambda: kl.smallest_eigvec(A9),
+         lambda: kl.smallest_eigvec(A9, 0), lambda: gl.smallest_eigvec_plain(A9),
+         lambda: torch.linalg.eigh(A9), eigvec_ops(9), 4 * (81 + 9)),
+        ("smallest_eigvec_n4", A4, lambda: kl.smallest_eigvec(A4),
+         lambda: kl.smallest_eigvec(A4, 0), lambda: gl.smallest_eigvec_plain(A4),
+         lambda: torch.linalg.eigh(A4), eigvec_ops(4), 4 * (16 + 4)),
+    )
+    rows = {}
+    for key, A, kernel, floor, plain, library, ops_each, bytes_each in cases:
+        batch = A.numel() // (A.shape[-1] ** 2)
+        ops, nbytes = batch * ops_each, batch * bytes_each
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows[key] = {
+            "batch": batch, "ms": graph_ms(kernel, 20),
+            "ms_in_run": graph_ms(kernel, 20, launches=20),
+            "ms_floor": graph_ms(floor, 20, launches=20),
+            "plain_ms": cuda_ms(plain, 5), "library_ms": cuda_ms(library, 20),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes}
+        r = rows[key]
+        print(f"[linalg] {key} at a batch of {batch}: {r['ms']:.5f} ms a launch "
+              f"({r['ms_in_run']:.5f} in a graph of 20, {r['ms_floor']:.5f} with no "
+              f"sweeps or iterations), plain {r['plain_ms']:.3f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
+              f"{nbytes} bytes, {ops} ops)")
+    rows["check"] = result
+    return rows
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -852,13 +936,31 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def main():
+def linalg_only():
+    """``python3 chip_smoke.py linalg``: build the small-matrix solvers'
+    library and run :func:`linalg_phase` alone."""
+    import torch
+
+    from niftymatch_torch.kernels import _build
+
+    build_s = _build.build_all(("linalg",))
+    print(f"[build] linalg built in {build_s:.1f} s on {card_line()} (torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda})")
+    for line in _build.build_log("linalg").splitlines():
+        if any(w in line for w in ("registers", "spill", "warning")):
+            print(f"[build] linalg.cu: {line.strip()}")
+    print(json.dumps({"linalg": linalg_phase(torch.device("cuda"))}))
+
+
+def main(args=()):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if list(args) == ["linalg"]:
+        return linalg_only()
     import niftymatch_torch as nt
     from niftymatch_torch.features import Features
     from niftymatch_torch.kernels import _build
@@ -1002,7 +1104,8 @@ def main():
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"[batch] launches in one 8-pair chunk: {launches}")
-    assert launches == {k: int(k not in ("k1_match_top2_bf16", "refine_gn"))
+    assert launches == {k: int(k not in ("k1_match_top2_bf16", "refine_gn", "svd3x3",
+                                         "smallest_eigvec"))
                         for k in launches}, "a kernel of the path did not run once"
     halves = [Features(*[t[:CHUNK] for t in fbatch]),
               Features(*[t[CHUNK:] for t in fbatch])]
@@ -1203,6 +1306,7 @@ def main():
     refine = refine_phase(nt, clip_8b, dev)
     errs["refine"] = refine["max_abs_err"]
     bounds["refine"] = (*refine["bound"], refine["bytes"], refine["ops"], None)
+    linalg = linalg_phase(dev)
     phase_s["8"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 9. SLAM loop closure ----------------------------------------------
@@ -1275,7 +1379,13 @@ def main():
          "n": refine["n"], "cost_rel_err": refine["cost_rel_err"],
          "plain_abs_err": refine["plain_abs_err"], "kernel_vs_plain": refine["kernel_vs_plain"],
          "ms_in_run": refine["ms_in_run"], "ms_no_steps": refine["ms_no_steps"]},
-    ] + [k4_row(v) for v in k4.FOLDS]
+    ] + [{"name": name, "route": "cuda", "source": "niftymatch_torch/csrc/linalg.cu",
+          "replaces": None, "launches": launches[name], "slam_launches": slam_launches[name],
+          "closure_launches": closure_launches[name], "ring_launches": ring_launches[name],
+          "dataset_launches": dataset_launches[name], **linalg[key]}
+         for name, key in (("svd3x3", "svd3x3"), ("smallest_eigvec", "smallest_eigvec_n9"),
+                           ("smallest_eigvec", "smallest_eigvec_n4"))
+         ] + [k4_row(v) for v in k4.FOLDS]
     print(json.dumps({"e2e": {"chunk_ms": chunk_ms, "keyframes_per_s": kf_s,
                               "host_chunk_ms": 1e3 * host_s / TIMED_CHUNKS,
                               "chunk_ms_median": float(np.median(chunk_times)),
@@ -1301,4 +1411,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -10,15 +10,21 @@ writes them as chains of scalar operations that XLA fuses into one
 program; run eagerly, each operation is a kernel launch, so here they work
 on whole ``(..., n, n)`` tensors a rotation, a column or a solve at a
 time.  Every function takes any leading batch axes.
+
+``svd3x3`` and ``smallest_eigvec`` are one CUDA launch a call on CUDA
+tensors (``kernels/linalg.py``, ``csrc/linalg.cu``): their plain versions,
+``svd3x3_plain`` and ``smallest_eigvec_plain``, which CPU tensors take,
+are ~512 and ~130 launches a call, and the SLAM frame calls them ~20 times.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from ..kernels import linalg as _kernel
 from ..ops.gradients import div_const
 from ..utils.precision import device_constant, f32
+from ..utils.profiling import count
 
 
 def _jacobi_rotation(app, aqq, apq):
@@ -110,7 +116,19 @@ def smallest_eigvec(A: torch.Tensor, iterations: int = 8) -> torch.Tensor:
     """Unit eigenvector of the smallest eigenvalue of symmetric PSD
     (..., n, n) matrices: inverse iteration on the Cholesky factor of
     ``A + (1e-6 tr(A)/n + 1e-30) I`` from a fixed generic start vector
-    (the DLT solvers' null-space extractor)."""
+    (the DLT solvers' null-space extractor).  CUDA tensors take the kernel,
+    for n <= 9 only (a larger n raises ``ValueError``)."""
+    count("linalg.calls")
+    if A.device.type == "cuda":
+        count("linalg.fused")
+        return _kernel.smallest_eigvec(A, iterations)
+    return smallest_eigvec_plain(A, iterations)
+
+
+@f32
+def smallest_eigvec_plain(A: torch.Tensor, iterations: int = 8) -> torch.Tensor:
+    """:func:`smallest_eigvec` in plain PyTorch on any device: the kernel's
+    counterpart, which CPU tensors take."""
     n = A.shape[-1]
     A = A.to(torch.float32)
     tr = div_const(torch.diagonal(A, dim1=-2, dim2=-1).sum(-1), float(n))
@@ -119,9 +137,7 @@ def smallest_eigvec(A: torch.Tensor, iterations: int = 8) -> torch.Tensor:
     torch.diagonal(A, dim1=-2, dim2=-1).add_(eps[..., None])
     L = _cholesky_lower(A, 1e-30)
 
-    seed = np.random.default_rng(12345).normal(size=n).astype(np.float32)
-    seed /= np.linalg.norm(seed)
-    x = device_constant(seed, A.device).expand(A.shape[:-1])
+    x = device_constant(_kernel.start_vector(n), A.device).expand(A.shape[:-1])
     for _ in range(iterations):
         x = _cholesky_solve(L, x)
         norm = torch.sqrt((x * x).sum(-1, keepdim=True))
@@ -134,7 +150,18 @@ def svd3x3(E: torch.Tensor, sweeps: int = 12):
     """SVD of (..., 3, 3) matrices from the Jacobi eigh of ``E^T E``:
     ``(U, S, Vt)`` with S descending; the last column of U is rebuilt as
     the signed cross product of the first two (it is all noise once s3 is
-    small, as for an essential matrix)."""
+    small, as for an essential matrix).  CUDA tensors take the kernel."""
+    count("linalg.calls")
+    if E.device.type == "cuda":
+        count("linalg.fused")
+        return _kernel.svd3x3(E, sweeps)
+    return svd3x3_plain(E, sweeps)
+
+
+@f32
+def svd3x3_plain(E: torch.Tensor, sweeps: int = 12):
+    """:func:`svd3x3` in plain PyTorch on any device: the kernel's
+    counterpart, which CPU tensors take."""
     E = E.to(torch.float32)
     w, V = jacobi_eigh(E.transpose(-1, -2) @ E, sweeps)
     w, V = _sort3(w, V, descending=True)

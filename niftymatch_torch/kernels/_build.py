@@ -18,12 +18,12 @@ Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.  ``build_all`` starts one ``nvcc`` per source
 at once and waits for all of them.
 
-``LAUNCHES`` counts the launches of the system's kernels (K1-K3 and the
-two-view polish) by kernel name, ``K4_LAUNCHES`` those of K4's fold
-variants, which run only in their microbenchmark.  A wrapper adds one
-right after it launches its kernel, and nowhere else, so a run that
-resets the counts and reads them afterwards sees which kernels it went
-through.
+``LAUNCHES`` counts the launches of the system's kernels (K1-K3, the
+two-view polish and the small-matrix solvers) by kernel name,
+``K4_LAUNCHES`` those of K4's fold variants, which run only in their
+microbenchmark.  A wrapper adds one right after it launches its kernel,
+and nowhere else, so a run that resets the counts and reads them
+afterwards sees which kernels it went through.
 """
 
 from __future__ import annotations
@@ -49,17 +49,18 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # windows.cu (K2) keeps every multiply and add separately rounded (no FMA
 # contraction): it floors quotients into bins, so it reproduces its plain
 # PyTorch version's fp32 arithmetic op for op.  descriptors.cu (K3),
-# match.cu (K1), fold_micro.cu (K4) and refine.cu (the two-view polish)
-# compute continuous functions and let nvcc contract.  See the note at the
-# top of each source.
+# match.cu (K1), fold_micro.cu (K4), refine.cu (the two-view polish) and
+# linalg.cu (the small-matrix solvers) compute continuous functions and let
+# nvcc contract.  See the note at the top of each source.
 EXTRA_FLAGS = {"windows": ["-fmad=false"], "descriptors": [], "match": [],
-               "fold_micro": [], "refine": []}
+               "fold_micro": [], "refine": [], "linalg": []}
 SOURCES = tuple(EXTRA_FLAGS)
 TIMING = "_timing"
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 LAUNCHES = {"k1_match_top2": 0, "k1_match_top2_bf16": 0,
-            "k2_orientation_hist": 0, "k3_descriptor": 0, "refine_gn": 0}
+            "k2_orientation_hist": 0, "k3_descriptor": 0, "refine_gn": 0,
+            "svd3x3": 0, "smallest_eigvec": 0}
 # K4's fold variants, in the order of csrc/fold_micro.cu's enum.
 K4_FOLDS = ("gemm", "rowsum", "min1", "current", "pipe", "top2noi", "top2idx",
             "slotpack", "bf16")

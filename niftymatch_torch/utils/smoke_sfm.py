@@ -37,6 +37,13 @@ JAX_GLOBAL_FINAL_COST = 1866148.125
 # scalar reads that would be waits on the card.
 _SYNC_EVENTS = {"cuda": ("cudaStreamSynchronize", "cudaEventSynchronize"),
                 "cpu": ("aten::_local_scalar_dense",)}
+# The small-matrix solvers' calls in one estimate_two_view: svd3x3 four times
+# in E-RANSAC (the 8-point fit and its essential projection, in the batch
+# and the refit), once in each of the two recover_pose and in the
+# homography's decomposition; smallest_eigvec in the two 8-point and two
+# homography fits and in the three cheirality votes' triangulate_dlt.
+TWO_VIEW_SVD3X3 = 7
+TWO_VIEW_EIGVEC = 7
 
 
 def _sync(dev):
@@ -191,12 +198,14 @@ def two_view_phase(dev):
     if dev.type == "cuda":
         assert detect_launches == {"k1_match_top2": 0, "k1_match_top2_bf16": 0,
                                    "k2_orientation_hist": 1, "k3_descriptor": 1,
-                                   "refine_gn": 0}, \
+                                   "refine_gn": 0, "svd3x3": 0, "smallest_eigvec": 0}, \
             "detection of the batch did not launch K2 and K3 once"
         assert all(la == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
-                          "k2_orientation_hist": 0, "k3_descriptor": 0, "refine_gn": 1}
+                          "k2_orientation_hist": 0, "k3_descriptor": 0, "refine_gn": 1,
+                          "svd3x3": TWO_VIEW_SVD3X3, "smallest_eigvec": TWO_VIEW_EIGVEC}
                    for la in pair_launches), \
-            "estimate_two_view did not launch K1 twice and the polish once"
+            ("estimate_two_view did not launch K1 twice, the polish once and the "
+             "small-matrix solvers once a call")
 
     calls = [(one[i], one[i + 1]) for i in range(pairs)]
     times = ms_each(lambda ab: nt.estimate_two_view(*ab, intr, rcfg, device=dev), calls, dev)

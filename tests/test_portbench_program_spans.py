@@ -60,8 +60,10 @@ EXPECTED = {
     "pageable_dtoh.frames": 1 / 2,                    # the one inside a program span
     "idle_covered_share.frames": 100.0 * 300 / 500,
     "refine_fused_share.frames": 100.0 * 3 / 4,       # refine.fused over refine.calls
+    "linalg_fused_share.frames": 100.0 * 28 / 30,     # linalg.fused over linalg.calls
 }
-COUNTERS = {"ba.obs_updates": 1000, "ba.solves": 1, "refine.calls": 4, "refine.fused": 3}
+COUNTERS = {"ba.obs_updates": 1000, "ba.solves": 1, "refine.calls": 4, "refine.fused": 3,
+            "linalg.calls": 30, "linalg.fused": 28}
 
 
 @pytest.mark.parametrize("metric", sorted(EXPECTED))
@@ -79,7 +81,7 @@ def test_every_reader_is_declared_for_the_track_cell():
         m = declared[name]
         assert m["workloads"] == ["track.slam640"] and m["moves"] == "frames_per_s"
         assert m["layer"] == "SLAM"
-        counter = name.startswith(("ba_", "refine_"))
+        counter = name.startswith(("ba_", "refine_", "linalg_"))
         assert m["source"] == ("program_counter" if counter else "program_span")
 
 
@@ -88,3 +90,12 @@ def test_refine_share_reads_nothing_without_its_counters(monkeypatch):
     SLAM loop before the fused polish) leaves the share unread."""
     monkeypatch.setattr(profiling, "_COUNTS", {"ba.obs_updates": 1000, "ba.solves": 1})
     assert harness.reader("refine_fused_share.frames").read(_trace(), INFO) is None
+
+
+def test_linalg_share_reads_nothing_without_its_counters(monkeypatch):
+    """A program that opens the spans but keeps no small-matrix solver
+    counters (the SLAM loop before the fused solvers) leaves the share
+    unread."""
+    monkeypatch.setattr(profiling, "_COUNTS", {"ba.obs_updates": 1000, "ba.solves": 1,
+                                               "refine.calls": 4, "refine.fused": 4})
+    assert harness.reader("linalg_fused_share.frames").read(_trace(), INFO) is None

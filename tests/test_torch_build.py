@@ -3,15 +3,20 @@ the CPU: a library's name follows its source and the headers it includes,
 the timing variants live only in their own libraries, and
 ``chip_smoke.bound`` charges K1 at the tensor cores' rates."""
 
+import re
 import shutil
 
+import numpy as np
 import pytest
 
 import torch
 
 import chip_smoke
+from niftymatch_torch.geometry import linalg as glinalg
 from niftymatch_torch.kernels import _build
+from niftymatch_torch.kernels import linalg as klinalg
 from niftymatch_torch.kernels import refine as krefine
+from niftymatch_torch.utils import profiling
 
 
 @pytest.fixture
@@ -65,8 +70,9 @@ def test_every_kernel_has_a_counter_and_flags():
     assert _build.EXTRA_FLAGS["windows"] == ["-fmad=false"]
     assert set(_build.LAUNCHES) == {"k1_match_top2", "k1_match_top2_bf16",
                                     "k2_orientation_hist", "k3_descriptor",
-                                    "refine_gn"}
+                                    "refine_gn", "svd3x3", "smallest_eigvec"}
     assert "refine" in _build.SOURCES and _build.EXTRA_FLAGS["refine"] == []
+    assert "linalg" in _build.SOURCES and _build.EXTRA_FLAGS["linalg"] == []
     assert set(_build.K4_LAUNCHES) == {f"k4_fold_{f}" for f in _build.K4_FOLDS}
     _build.LAUNCHES["k3_descriptor"] = 3
     _build.K4_LAUNCHES["k4_fold_pipe"] = 2
@@ -94,6 +100,62 @@ def test_refine_wrapper_refuses_bad_inputs_before_building(monkeypatch, bad):
     with pytest.raises(ValueError):
         krefine.refine_relative_pose(*args, **kw)
     assert _build.LAUNCHES["refine_gn"] == 0
+
+
+@pytest.mark.parametrize("bad", ["cpu", "shape", "n10", "sweeps", "iterations"])
+def test_linalg_wrappers_refuse_bad_inputs_before_building(monkeypatch, bad):
+    """The small-matrix kernels' wrappers take CUDA matrices of the sizes
+    they are built for, and refuse anything else, with the reason, before
+    they build or launch."""
+    monkeypatch.setattr(_build, "load", _no_build)
+    monkeypatch.setattr(_build, "build_all", _no_build)
+    calls = {
+        "cpu": (lambda: klinalg.svd3x3(torch.eye(3).expand(4, 3, 3)), "CUDA tensor"),
+        "shape": (lambda: klinalg.svd3x3(torch.zeros(4, 3, 4)), "(..., 3, 3)"),
+        "n10": (lambda: klinalg.smallest_eigvec(torch.zeros(4, 10, 10)), "n <= 9"),
+        "sweeps": (lambda: klinalg.svd3x3(torch.eye(3), sweeps=-1), "sweeps must be >= 0"),
+        "iterations": (lambda: klinalg.smallest_eigvec(torch.eye(4), -1),
+                       "iterations must be >= 0"),
+    }
+    fn, reason = calls[bad]
+    with pytest.raises(ValueError, match=re.escape(reason)):
+        fn()
+    assert _build.LAUNCHES["svd3x3"] == _build.LAUNCHES["smallest_eigvec"] == 0
+
+
+@pytest.mark.parametrize("solver", ["svd3x3", "smallest_eigvec"])
+def test_linalg_on_cpu_takes_the_plain_version(monkeypatch, tmp_path, solver):
+    """CPU tensors never reach the kernels: the router gives the plain
+    version's bits, counts every call in ``linalg.calls`` and none in
+    ``linalg.fused``, and builds and launches nothing."""
+    monkeypatch.setattr(_build, "load", _no_build)
+    monkeypatch.setattr(_build, "build_all", _no_build)
+    rng = torch.Generator().manual_seed(0)
+    if solver == "svd3x3":
+        args = (torch.randn(2, 5, 3, 3, generator=rng),)
+    else:
+        b = torch.randn(6, 8, 9, generator=rng)
+        args = (b.transpose(-1, -2) @ b,)
+    with profiling.trace(str(tmp_path)):
+        got = getattr(glinalg, solver)(*args)
+        getattr(glinalg, solver)(*args)
+        counted = profiling.counts()
+    want = getattr(glinalg, solver + "_plain")(*args)
+    for g, w in zip(got if solver == "svd3x3" else (got,),
+                    want if solver == "svd3x3" else (want,)):
+        assert torch.equal(g, w)
+    assert counted == {"linalg.calls": 2}
+    assert not any(_build.LAUNCHES.values())
+
+
+def test_linalg_start_vector_is_the_plain_versions():
+    """The kernel reads the plain version's fixed start vector: unit length,
+    dense, the same for every call."""
+    for n in (4, 9):
+        v = klinalg.start_vector(n)
+        assert v.dtype == np.float32 and v.shape == (n,)
+        assert abs(float(np.linalg.norm(v)) - 1.0) < 1e-6 and (np.abs(v) > 1e-3).all()
+        np.testing.assert_array_equal(v, klinalg.start_vector(n))
 
 
 @pytest.mark.parametrize("products,rate,nbytes,want_ms", [

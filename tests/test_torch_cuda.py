@@ -24,7 +24,12 @@ within 1e-3) and the SLAM system passes phase 8a.  The fused two-view
 polish agrees with the plain ``jacfwd`` polish on the CPU (R and t within
 1e-4, cost within 1e-3 relative; analytic against forward-mode
 derivatives, sums in another order), is one launch with no host wait and
-gives the same bits on every run.  K4's nine fold
+gives the same bits on every run.  The small-matrix solvers' kernels
+(``svd3x3``, ``smallest_eigvec``) agree with their plain versions on the
+card at the SLAM frame's shapes under ``utils/smoke_linalg.py``'s
+tolerances, are one launch a call with no host wait, and leave RANSAC's
+inlier masks and ``two_view_from_matches``' pose as the plain versions
+give them.  K4's nine fold
 variants agree with their plain versions under ``kernels.fold.agreement``
 and give the same bits on every run, also split across CTAs, with ties
 across splits and in graph replays; the all-pairs sweep in bf16 lies
@@ -37,7 +42,9 @@ bit and lies within 2 of the oracle; distributed dense and PCG BA at
 world 1 give the single-device solvers' bits.
 """
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -66,6 +73,10 @@ CFG = nt.SiftConfig(width=W, height=H, max_keypoints_per_level=64, max_features=
 KP = ("x", "y", "sigma", "octave", "level")
 
 pytestmark = pytest.mark.cuda
+LINALG = ("svd3x3", "smallest_eigvec")
+# The small-matrix solvers' launches in one ransac(): fits in the batch and the refit.
+RANSAC_LINALG = {"translation": (0, 0), "similarity": (0, 0), "homography": (0, 2),
+                 "fundamental": (2, 2), "essential": (4, 2), "essential5": (2, 1)}
 
 
 def _front(dev):
@@ -159,7 +170,8 @@ def test_slice_on_card_matches_cpu():
     _build.reset_launches()
     ga, gb, gm = nt.make_pair_pipeline(pcfg, device=dev)(img_a, img_b)
     torch.cuda.synchronize()
-    expected = {k: int(k not in ("k1_match_top2_bf16", "refine_gn")) for k in _build.LAUNCHES}
+    expected = {k: int(k not in ("k1_match_top2_bf16", "refine_gn", *LINALG))
+                for k in _build.LAUNCHES}
     assert _build.LAUNCHES == expected, _build.LAUNCHES
     ca, cb, cm = nt.make_pair_pipeline(pcfg, device="cpu")(img_a, img_b)
     for g, c in ((ga, ca), (gb, cb)):
@@ -452,7 +464,8 @@ def test_k1_k2_k3_rerun_bit_identical():
 @pytest.mark.parametrize("model", ["translation", "similarity", "homography",
                                    "fundamental", "essential", "essential5"])
 def test_ransac_on_card_matches_cpu(model):
-    """One injected draw on the card and on the CPU: the same transform
+    """One injected draw on the card and on the CPU: the small-matrix
+    solvers launched once a fit on the card, the same transform
     (corners within 1e-3 px for the 2-D models, entries within 1e-3 up to
     sign for the epipolar ones), and inlier flags that differ only at
     points whose error lies within 1e-4 tau of tau (CUDA divides by a
@@ -475,7 +488,8 @@ def test_ransac_on_card_matches_cpu(model):
     rg = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
     rc = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device="cpu")
     assert bool(rg.success) and bool(rc.success)
-    assert sum(_build.LAUNCHES.values()) == 0
+    assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES},
+                               **dict(zip(LINALG, RANSAC_LINALG[model]))}
     tg, tc = np_(rg.transform), np_(rc.transform)
     if model in PLANAR_TRUTH:
         corners = np.array([[0, 0, 1], [300, 0, 1], [0, 300, 1], [300, 300, 1]], float).T
@@ -525,7 +539,8 @@ def test_warp_and_blend_on_card_match_cpu():
 
 def test_mosaic_add_frame_launches_and_registers():
     """Each add_frame after the first launches K1 twice (both match
-    directions), K2 and K3 once; shifted crops register."""
+    directions), K2 and K3 once, and ``smallest_eigvec`` twice (the
+    homography fits of RANSAC's batch and refit); shifted crops register."""
     from niftymatch_torch.mosaic import MosaicBuilder, MosaicConfig
 
     dev = cuda_device()
@@ -540,7 +555,7 @@ def test_mosaic_add_frame_launches_and_registers():
         assert info["registered"], info
         assert _build.LAUNCHES == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
                                    "k2_orientation_hist": 1, "k3_descriptor": 1,
-                                   "refine_gn": 0}
+                                   "refine_gn": 0, "svd3x3": 0, "smallest_eigvec": 2}
     h = mb.frame_to_canvas()
     np.testing.assert_allclose(h[:2, 2] - np.array([(320 - W) / 2, (240 - H) / 2]),
                                [28, 20], atol=1.0)
@@ -592,6 +607,133 @@ def test_two_view_on_card_matches_cpu():
         assert np.abs(np_(r.R) - R_true).max() < 0.02
     np.testing.assert_allclose(np_(got.R), np_(want.R), atol=1e-3)
     np.testing.assert_allclose(np_(got.t), np_(want.t), atol=1e-3)
+
+
+# --- the small-matrix solvers (csrc/linalg.cu) --------------------------------
+
+
+@contextlib.contextmanager
+def _plain_solvers():
+    """Every caller of ``svd3x3`` and ``smallest_eigvec`` given the plain
+    versions, which also run on CUDA tensors."""
+    from niftymatch_torch.geometry import linalg as gl
+    from niftymatch_torch.geometry import transforms
+    from niftymatch_torch.sfm import homography, triangulation
+
+    with contextlib.ExitStack() as stack:
+        for mod in (gl, transforms, triangulation, homography):
+            for name in LINALG:
+                if hasattr(mod, name):
+                    stack.enter_context(
+                        mock.patch.object(mod, name, getattr(gl, name + "_plain")))
+        yield
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 + 11])
+def test_linalg_kernels_match_plain(seed):
+    """``svd3x3`` over 512 3 x 3 matrices (generic, rank-2 essential, two
+    singular values within 1e-6 to 1e-3), ``smallest_eigvec`` over 512 9 x 9
+    DLT normal matrices and 8 x 1,024 4 x 4 ``triangulate_dlt`` systems,
+    against the plain versions on the card: ``utils/smoke_linalg.py``'s
+    tolerances, and the same bits on a rerun."""
+    from niftymatch_torch.utils import smoke_linalg
+
+    dev = cuda_device()
+    result = smoke_linalg.compare(dev, seed)
+    smoke_linalg.check(result)
+    assert result["eig9"]["conditioned_share"] > 0.5
+    assert result["eig4"]["conditioned_share"] > 0.9
+
+
+@pytest.mark.parametrize("solver", LINALG)
+def test_linalg_one_kernel_a_call_no_sync(solver):
+    """On a CUDA tensor the router launches exactly one kernel, the
+    solver's, counts it once, and waits for nothing on the host (sync
+    debug mode "error"); a CUDA ``smallest_eigvec`` past n = 9 raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from niftymatch_torch.geometry import linalg as gl
+    from niftymatch_torch.utils import smoke_linalg
+
+    dev = cuda_device()
+    A = smoke_linalg.svd_inputs(dev) if solver == "svd3x3" else smoke_linalg.eig9_inputs(dev)
+    call = getattr(gl, solver)
+    call(A)                            # builds, loads, uploads the start vector
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call(A)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call(A)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and f"{solver}_kernel" in kernels[0], kernels
+    assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES}, solver: 2}
+    with pytest.raises(ValueError, match="n <= 9"):
+        gl.smallest_eigvec(torch.eye(10, device=dev))
+
+
+@pytest.mark.parametrize("model", ["essential", "homography"])
+def test_ransac_kernel_path_matches_plain_path(model):
+    """``ransac`` on the card with one injected draw, through the kernels
+    and through the plain solvers: the same success, inlier mask and
+    ``num_inliers`` (``test_ransac_on_card_matches_cpu``'s data)."""
+    dev = cuda_device()
+    rng = np.random.default_rng(8)
+    n, iters = 512, 512
+    if model in PLANAR_TRUTH:
+        src, dst = planar_correspondences(rng, model, n, n // 3)
+        tau = 4.0
+    else:
+        src, dst, _ = two_view(rng, n, outliers=n // 3)
+        tau = 1e-5
+    scores = rng.gumbel(size=(iters, n)).astype(np.float32)
+    cfg = nt.RansacConfig(iterations=iters, inlier_threshold=tau)
+    mask = np.ones(n, bool)
+    _build.reset_launches()
+    got = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
+    with _plain_solvers():
+        want = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
+    torch.cuda.synchronize()
+    assert tuple(_build.LAUNCHES[k] for k in LINALG) == RANSAC_LINALG[model]
+    assert bool(got.success) and bool(want.success)
+    np.testing.assert_array_equal(np_(got.inliers), np_(want.inliers))
+    assert int(got.num_inliers) == int(want.num_inliers)
+
+
+def test_two_view_kernel_path_matches_plain_path():
+    """``two_view_from_matches`` on a rendered 640x480 pair (views 0 and 1
+    of ``chip_smoke.py`` 7a's scene, 1,024 features, mutual matches) with
+    one injected draw for each model, through the kernels and through the
+    plain solvers: the same success and inliers, R within 1e-4."""
+    from niftymatch_torch.data import make_scene, render_frames
+    from niftymatch_torch.ops.match import mutual_matches
+    from niftymatch_torch.slam.frontend import two_view_from_matches
+
+    dev = cuda_device()
+    scene = make_scene(num_cams=8, num_landmarks=1200, seed=0, radius=6.0,
+                       width=640, height=480)
+    frames = torch.from_numpy(render_frames(scene, seed=0)[:2]).to(dev)
+    feats = nt.detect_and_describe_batch(frames, nt.SiftConfig(640, 480, max_features=1024),
+                                         device=dev)
+    fa, fb = (nt.Features(*[t[i] for t in feats]) for i in range(2))
+    m = nt.match_pair(fa, fb, ambiguity=0.7, device=dev)
+    m = m._replace(indices=mutual_matches(m, nt.match_pair(fb, fa, ambiguity=0.7, device=dev)))
+    intr = tuple(float(v) for v in scene.intrinsics)
+    cfg = nt.RansacConfig(iterations=512, inlier_threshold=4.0)
+    rng = np.random.default_rng(3)
+    se, sh = (rng.gumbel(size=(512, 1024)).astype(np.float32) for _ in range(2))
+    got = two_view_from_matches(fa, fb, m, intr, cfg, scores_e=se, scores_h=sh, device=dev)
+    with _plain_solvers():
+        want = two_view_from_matches(fa, fb, m, intr, cfg, scores_e=se, scores_h=sh,
+                                     device=dev)
+    assert bool(got.success) and bool(want.success)
+    assert int(got.num_inliers) == int(want.num_inliers) >= 20
+    np.testing.assert_allclose(np_(got.R), np_(want.R), atol=1e-4)
 
 
 def _refine_scene(rng, n, t_dir=(0.8, 0.1, -0.2), noise=5e-4):

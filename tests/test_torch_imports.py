@@ -36,6 +36,7 @@ MODULES = [
     "niftymatch_torch.kernels",
     "niftymatch_torch.kernels._build",
     "niftymatch_torch.kernels.fold",
+    "niftymatch_torch.kernels.linalg",
     "niftymatch_torch.kernels.match",
     "niftymatch_torch.kernels.refine",
     "niftymatch_torch.kernels.windows",
@@ -84,6 +85,7 @@ MODULES = [
     "niftymatch_torch.utils.smoke_closure",
     "niftymatch_torch.utils.smoke_dataset",
     "niftymatch_torch.utils.smoke_fold",
+    "niftymatch_torch.utils.smoke_linalg",
     "niftymatch_torch.utils.smoke_parallel",
     "niftymatch_torch.utils.smoke_sfm",
     "niftymatch_torch.utils.smoke_slam",

@@ -10,7 +10,8 @@ second chunk's fetch, the last one's a ``flush_ba``), runs once with no
 profiler and once under ``profiling.trace``.  The traced run must hold
 the tracking loop's regions, properly nested, and answer exactly as the
 untraced one; the window-BA counters must agree with the solves' own
-observation counts.  The SIFT, pair-matching and all-pairs entry points
+observation counts, and the small-matrix solvers' counters count every
+call and, on the CPU, no fused one.  The SIFT, pair-matching and all-pairs entry points
 must open none of the program's regions: the benchmark's per-layer
 metrics of the other cells attribute device work to the innermost region,
 and a region of the program inside those calls would take it from them.
@@ -140,7 +141,12 @@ def test_ba_counters_count_each_solve(sessions):
     assert len(solves) == 2 and all(0 < o < cfg.max_obs for o in solves)
     assert counted == {"ba.solves": len(solves),
                        "ba.obs_updates": sum(solves) * cfg.ba.max_iterations,
-                       "refine.calls": 8 - 1}   # one polish a tracked frame, on the CPU
+                       "refine.calls": 8 - 1,   # one polish a tracked frame, on the CPU
+                       # 15 small-matrix solves a tracked frame (7 svd3x3: 4 in
+                       # RANSAC-E, 1 in each recover_pose and in the homography's
+                       # decomposition; 8 smallest_eigvec: the two 8-point and two
+                       # DLT homography fits, 4 triangulate_dlt), none fused on the CPU
+                       "linalg.calls": 15 * (8 - 1)}
     assert json.loads((logdir / "counters.json").read_text()) == counted
 
 
