@@ -44,11 +44,10 @@ Phases (any failed check raises, so the script exits non-zero):
      microbenchmark (``utils/smoke_fold.run``) at (k 1,024, nb 16) and
      (k 4,096, nb 1), counted with the launch counts reset just before and
      read just after: each variant's ms beside its bound, its ms in a
-     graph of 20 launches, the same two of the kernel without its
-     warpgroups' turns and of the K1-loop kernel (the timing library), the
-     replay of a graph of one ``zero_()``, K1 bf16 on the same operands,
-     each variant's plain ms and, for ``current``, one library call (bf16
-     ``baddbmm`` + ``topk``) at both shapes;
+     graph of 20 launches, the replay of a graph of one ``zero_()``, K1
+     bf16 on the same operands, each variant's plain ms and, for
+     ``current``, one library call (bf16 ``baddbmm`` + ``topk``) at both
+     shapes;
   6. geometry and mosaic on the card: phase 3's pair through
      ``align_points`` -> ``ransac(model="homography")`` at the defaults
      (2048 iterations, threshold 9, 2048 slots), H within 1 px of the
@@ -162,8 +161,7 @@ the polish ``refine_gn`` and the small-matrix solvers with their launches in pha
 timed run, 9b's whole run, 10a's world-1 path (``shard_detect`` and one
 mutual ring sweep) and 10d's run from disk; each K4 variant with its
 launches in phase 5's microbenchmark and its times there: at both shapes,
-the kernel's, in a run of 20, without the turns, and the K1-loop kernel's,
-measured in the same run), the nvidia-smi line, and as its
+the kernel's and in a run of 20), the nvidia-smi line, and as its
 last line ``{"ok": true, "device": {...}}``.
 Each phase prints its seconds.
 Exits non-zero with no result when CUDA is absent or the package is not
@@ -978,7 +976,7 @@ def main(args=()):
     phase_s, t_phase = {}, time.perf_counter()   # seconds of each phase
 
     # -- 1. build -----------------------------------------------------------
-    build_s = _build.build_all(_build.SOURCES + ("fold_micro" + _build.TIMING,))
+    build_s = _build.build_all(_build.SOURCES)
     smi = card_line()
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"[build] kernels built in {build_s:.1f} s on {card}")
@@ -1248,8 +1246,7 @@ def main(args=()):
 
     # K4's path: the fold microbenchmark at both shapes, its launches counted.
     _build.reset_launches()
-    k4_rows = {shape: smoke_fold.run(*shape, graph_ms, bf16_bound, reps=reps, device=dev,
-                                     ablations=("noturns", "k1loop"))
+    k4_rows = {shape: smoke_fold.run(*shape, graph_ms, bf16_bound, reps=reps, device=dev)
                for shape in K4_SHAPES}
     torch.cuda.synchronize()
     k4_launches = dict(_build.K4_LAUNCHES)
@@ -1271,9 +1268,8 @@ def main(args=()):
               f"{rows[0]['bound_ms']:.5f} ms, {rows[0]['bound_by']}; a graph of one zero_() "
               f"{rows[0]['timer_floor_ms']:.5f} ms): " + ", ".join(
                   f"{r['fold']} {r['ms']:.5f} ms ({r['pct_of_bound']:.1f} %, "
-                  f"{r['us_over_rowsum']:+.2f} us; in a run {r['ms_in_run']:.5f}"
-                  + (f"; no turns {r['ms_noturns']:.5f}, K1 loop {r['ms_k1loop']:.5f}"
-                     if "ms_k1loop" in r else "") + ")" for r in rows))
+                  f"{r['us_over_rowsum']:+.2f} us; in a run {r['ms_in_run']:.5f})"
+                  for r in rows))
     print(f"[time] k4 plain ms at k 1024, nb 16: {k4_plain}; library (current: bf16 "
           f"baddbmm + topk) {k4_lib[K4_SHAPES[0]]:.5f} ms, at k 4096, nb 1 "
           f"{k4_lib[K4_SHAPES[1]]:.5f} ms; launches {k4_launches}")
@@ -1355,12 +1351,9 @@ def main(args=()):
                 "plain_ms": k4_plain[v], "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": k4_lib[K4_SHAPES[0]] if v == "current" else None,
-                "ms_in_run": main["ms_in_run"], "ms_k1loop": main["ms_k1loop"],
-                "ms_noturns": main["ms_noturns"],
+                "ms_in_run": main["ms_in_run"],
                 "timer_floor_ms": main["timer_floor_ms"],
                 "ms_k4096_nb1": big["ms"], "ms_in_run_k4096_nb1": big["ms_in_run"],
-                "ms_k1loop_k4096_nb1": big["ms_k1loop"],
-                "ms_noturns_k4096_nb1": big["ms_noturns"],
                 "bound_ms_k4096_nb1": big["bound_ms"],
                 "library_ms_k4096_nb1": k4_lib[K4_SHAPES[1]] if v == "current" else None}
 

@@ -80,13 +80,6 @@ constexpr int MAX_ROWS = 128;   // window rows: 2 pad + 1 <= 128
 constexpr int THREADS = 256;    // per block, which describes one keypoint
 constexpr unsigned FULL = 0xffffffffu;
 
-// Timing variants, the template argument V of the kernel: 0 is the
-// function; each bit leaves a part of the work out.  Only a build with
-// NM_TIMING_VARIANTS (tools/k3_variants.py) instantiates the others.
-constexpr int WHOLE_WINDOW = 1;  // visit the whole square, not the spans
-constexpr int SKIP_ADDS = 2;     // pass 2 without its atomic adds
-constexpr int SKIP_PASS2 = 4;    // no pass 2
-
 struct Slots {
   const float *x, *y, *sigma, *angle0;
   const int *octave, *level, *image;
@@ -186,7 +179,6 @@ __device__ __forceinline__ void stage(const Keypoint& kp, Shared& s,
 
 // The raw descriptor of the round's valid slot i (slot k), by the whole
 // block.
-template <int V>
 __device__ void describe(const Geometry& g, int i, int k, float sign,
                          Shared& s, float* out) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -213,14 +205,7 @@ __device__ void describe(const Geometry& g, int i, int k, float sign,
   // The spans of the window rows and their prefix sum.
   if (tid < MAX_ROWS) {
     int x0 = 0, len = 0;
-    if (tid < rows) {
-      if constexpr ((V & WHOLE_WINDOW) != 0) {
-        x0 = -kp.w;
-        len = rows;
-      } else {
-        row_span(kp, tid - kp.w, x0, len);
-      }
-    }
+    if (tid < rows) row_span(kp, tid - kp.w, x0, len);
     int incl = len;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -264,9 +249,8 @@ __device__ void describe(const Geometry& g, int i, int k, float sign,
 
   // Pass 2: each pixel's nonzero tents into the fixed-point bins.  With
   // one chunk the pixels are still staged from pass 1.
-  float sink = 0.0f;
   unsigned* const mine = s.hist + (tid % COPIES) * HIST_LD;
-  for (int c0 = 0; c0 < ((V & SKIP_PASS2) ? 0 : total); c0 += CAP) {
+  for (int c0 = 0; c0 < total; c0 += CAP) {
     const int c1 = min(total, c0 + CAP);
     if (total > CAP) stage(kp, s, rows, c0, c1);
     for (int q = tid; q < c1 - c0; q += THREADS) {
@@ -302,19 +286,11 @@ __device__ void describe(const Geometry& g, int i, int k, float sign,
           if ((unsigned)xb >= (unsigned)NBP) continue;
           const float l = wy * (b ? tx : 1.0f - tx);
           unsigned* h = mine + (yb * NBP + xb) * NBO;
-          if constexpr ((V & SKIP_ADDS) != 0) {
-            sink += l * (wt0 + wt1);
-          } else {
-            add_fixed(h + it0, l * wt0);
-            add_fixed(h + it1, l * wt1);
-          }
+          add_fixed(h + it0, l * wt0);
+          add_fixed(h + it1, l * wt1);
         }
       }
     }
-    __syncthreads();
-  }
-  if constexpr ((V & SKIP_ADDS) != 0) {
-    add_fixed(mine, sink);
     __syncthreads();
   }
 
@@ -334,7 +310,6 @@ __device__ void describe(const Geometry& g, int i, int k, float sign,
 // THREADS of them a round.  Warp w writes the zeros of the round's invalid
 // slots 32 w .. 32 w + 31, and the block describes the valid ones one after
 // the other.
-template <int V>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 descriptor_kernel(Geometry g, Slots sl, float sign, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -366,14 +341,13 @@ descriptor_kernel(Geometry g, Slots sl, float sign, float* __restrict__ out) {
     for (int w = 0; w < THREADS / 32; ++w) {
       for (unsigned bits = s.todo[w]; bits != 0u; bits &= bits - 1u) {
         const int i = 32 * w + __ffs(bits) - 1;
-        describe<V>(g, i, base + i * step, sign, s, out);
+        describe(g, i, base + i * step, sign, s, out);
       }
     }
     __syncthreads();  // before the next round's flags
   }
 }
 
-template <int V>
 int launch(const Geometry& g, const Slots& sl, float sign, void* out,
            void* stream) {
   constexpr int smem = (int)sizeof(Shared);
@@ -381,19 +355,19 @@ int launch(const Geometry& g, const Slots& sl, float sign, void* out,
   if (grid == 0) {
     int device = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaFuncSetAttribute(
-        descriptor_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        descriptor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e == cudaSuccess) e = cudaGetDevice(&device);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, descriptor_kernel<V>, THREADS, smem);
+          &per_sm, descriptor_kernel, THREADS, smem);
     if (e != cudaSuccess) return (int)e;
     grid = max(1, sms * per_sm);
   }
-  descriptor_kernel<V><<<min(grid, sl.m), THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  descriptor_kernel<<<min(grid, sl.m), THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       g, sl, sign, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -424,32 +398,8 @@ extern "C" int nm_descriptors(
     float sign, void* out, void* stream) {
   if (m <= 0) return 0;
   if (2 * pad + 1 > MAX_ROWS) return (int)cudaErrorInvalidValue;
-  return launch<0>(
+  return launch(
       make_geometry(mag, ang, num_images, num_octaves, num_levels, hp, wp, pad),
       make_slots(x, y, sigma, octave, level, image, angle0, valid, m), sign,
       out, stream);
 }
-
-#ifdef NM_TIMING_VARIANTS
-// One timing variant: WHOLE_WINDOW, SKIP_ADDS or SKIP_PASS2.  The results
-// of the last two are not the function's.
-extern "C" int nm_descriptors_variant(
-    int variant, const void* mag, const void* ang, int num_images,
-    int num_octaves, int num_levels, int hp, int wp, int pad, const void* x,
-    const void* y, const void* sigma, const void* octave, const void* level,
-    const void* image, const void* angle0, const void* valid, int m,
-    float sign, void* out, void* stream) {
-  if (m <= 0) return 0;
-  if (2 * pad + 1 > MAX_ROWS) return (int)cudaErrorInvalidValue;
-  const Geometry g = make_geometry(mag, ang, num_images, num_octaves,
-                                   num_levels, hp, wp, pad);
-  const Slots sl = make_slots(x, y, sigma, octave, level, image, angle0,
-                              valid, m);
-  switch (variant) {
-    case WHOLE_WINDOW: return launch<WHOLE_WINDOW>(g, sl, sign, out, stream);
-    case SKIP_ADDS: return launch<SKIP_ADDS>(g, sl, sign, out, stream);
-    case SKIP_PASS2: return launch<SKIP_PASS2>(g, sl, sign, out, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-#endif

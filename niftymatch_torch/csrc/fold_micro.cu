@@ -61,11 +61,6 @@
 // - wgmma m64n128k16 (8 per tile and warpgroup, A from registers, B from
 //   the swizzled tile): 64 accumulators a thread, folded as 32 columns of
 //   2 rows.  `pipe` also keeps the next tile's 64 in flight.
-// - Under NM_TIMING_VARIANTS (library fold_micro_timing) the file also
-//   holds the kernel without the turns (both warpgroups issue whenever
-//   their tile has landed) and the K1-loop kernel, K1's bf16 tile loop with
-//   these folds 64 columns wide, for tools/fold_micro.py and chip_smoke.py
-//   to time beside the new one.
 
 #include "match_tile.cuh"
 #include "fold_tile.cuh"
@@ -417,9 +412,7 @@ constexpr int BAR_CONSUMERS = 3;          // the consumers, for the split merge
 constexpr int WS_SMEM = 1024 /* alignment */ + STAGES * WIDE_TILE_BYTES
                         + STAGES * WIDE_N * 4 + 2 * STAGES * 8 + 16;
 
-// Turns = false (timing library only) lets both warpgroups issue their
-// wgmmas whenever their tile has landed, without taking turns.
-template <int F, bool Turns>
+template <int F>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 fold_kernel(const __grid_constant__ CUtensorMap bmap,
             const __nv_bfloat16* __restrict__ a, const float* __restrict__ bnorm,
@@ -521,11 +514,9 @@ fold_kernel(const __grid_constant__ CUtensorMap bmap,
     // then the other's turn (warpgroup 1 gives none after its last).
     auto take_turn = [&](float (&acc)[WIDE_ACC], int i) {
       mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
-      if constexpr (Turns) named_sync(BAR_TURN + wg, CONSUMER_THREADS);
+      named_sync(BAR_TURN + wg, CONSUMER_THREADS);
       issue(acc, i);
-      if constexpr (Turns) {
-        if (wg == 0 || i + 1 < count) named_arrive(BAR_TURN + (wg ^ 1), CONSUMER_THREADS);
-      }
+      if (wg == 0 || i + 1 < count) named_arrive(BAR_TURN + (wg ^ 1), CONSUMER_THREADS);
     };
     // Tile i's fold; then the warp gives the stage back.
     auto fold = [&](const float (&acc)[WIDE_ACC], int i) {
@@ -534,9 +525,7 @@ fold_kernel(const __grid_constant__ CUtensorMap bmap,
       if (lane == 0) mbar_arrive(&empty[i % STAGES]);
     };
 
-    if constexpr (Turns) {
-      if (wg == 1) named_arrive(BAR_TURN, CONSUMER_THREADS);  // warpgroup 0 first
-    }
+    if (wg == 1) named_arrive(BAR_TURN, CONSUMER_THREADS);  // warpgroup 0 first
     float acc[WIDE_ACC];
 #pragma unroll
     for (int i = 0; i < WIDE_ACC; ++i) acc[i] = 0.0f;
@@ -633,19 +622,19 @@ fold_kernel(const __grid_constant__ CUtensorMap bmap,
   }
 }
 
-template <int F, bool Turns = true>
+template <int F>
 int launch(const CUtensorMap& bmap, const void* a, const void* bnorm, int pairs,
            int m, int n, int splits, float base, void* min1, void* idx1,
            void* min2, void* scratch, void* counters, void* stream) {
   static bool attribute_set = false;  // once per kernel, before any capture
   if (!attribute_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fold_kernel<F, Turns>, cudaFuncAttributeMaxDynamicSharedMemorySize, WS_SMEM);
+        fold_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, WS_SMEM);
     if (e != cudaSuccess) return (int)e;
     attribute_set = true;
   }
   dim3 grid((m + ROWS - 1) / ROWS, splits, pairs);
-  fold_kernel<F, Turns><<<grid, WS_THREADS, WS_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  fold_kernel<F><<<grid, WS_THREADS, WS_SMEM, static_cast<cudaStream_t>(stream)>>>(
       bmap, static_cast<const __nv_bfloat16*>(a), static_cast<const float*>(bnorm),
       m, n, splits, base, static_cast<float*>(min1), static_cast<int*>(idx1),
       static_cast<float*>(min2), static_cast<unsigned*>(scratch),
@@ -653,7 +642,7 @@ int launch(const CUtensorMap& bmap, const void* a, const void* bnorm, int pairs,
   return (int)cudaGetLastError();
 }
 
-// The checks and the tensor map of both entry points; returns 0 or an error.
+// The checks and the tensor map of nm_fold_variant; returns 0 or an error.
 int prepare(CUtensorMap* bmap, const void* b, int pairs, int m, int n, int d,
             int splits, const void* scratch, const void* counters) {
   if (d != D || pairs <= 0 || m <= 0 || n <= 0 || pairs > 65535 ||
@@ -699,233 +688,3 @@ extern "C" int nm_fold_variant(int fold, const void* a, const void* b,
   }
 #undef NM_FOLD
 }
-
-#ifdef NM_TIMING_VARIANTS
-namespace {
-
-// --- the K1-loop kernel, for timing beside the new one ----------------------
-//
-// K1's bf16 loop (match_tile.cuh): a block owns 128 A rows of one pair in
-// registers, B streams through shared memory in 64-row tiles, three stages
-// deep with cp.async by every thread, and each warpgroup runs wgmma
-// m64n64k16 per tile, then waits and folds; the grid is (row blocks,
-// pairs).  Its results are the new kernel's.
-
-// One tile's wgmma group: acc = a . b over the full depth, A from
-// registers, the tile at `bt` in shared memory.
-__device__ __forceinline__ void issue_tile(float (&acc)[ACC],
-                                           const unsigned (&afr)[Bf16::STEPS][4],
-                                           const unsigned char* bt) {
-  constexpr unsigned lbo = 128, sbo = Layout<Bf16>::CHUNKS * 128;  // L::at
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < Bf16::STEPS; ++s)
-    Bf16::wgmma(acc, afr[s], smem_desc(bt + s * STEP_BYTES / 16 * 128, lbo, sbo),
-                s > 0);
-  wgmma_commit();
-}
-
-template <int F>
-__global__ void __launch_bounds__(THREADS, 1)
-fold_kernel_k1loop(const __nv_bfloat16* __restrict__ a,
-                   const __nv_bfloat16* __restrict__ b,
-                   const float* __restrict__ bnorm, int m, int n, float base,
-                   float* __restrict__ min1_out, int* __restrict__ idx1_out,
-                   float* __restrict__ min2_out) {
-  using L = Layout<Bf16>;
-  using Op = typename FoldOf<F, BN / 8>::T;
-  constexpr int STEPS = Bf16::STEPS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* As = smem;                  // [BM][LDA]
-  unsigned char* Bs = smem + L::A_REGION;    // [RAW][TILE]
-  float* bn_s = reinterpret_cast<float*>(Bs + L::RAW * L::TILE);  // [RAW][BN]
-
-  const int pair = blockIdx.y;
-  const int row0 = blockIdx.x * BM;
-  const unsigned char* ap =
-      reinterpret_cast<const unsigned char*>(a + (size_t)pair * m * D);
-  const unsigned char* bp =
-      reinterpret_cast<const unsigned char*>(b + (size_t)pair * n * D);
-  const float* bnp = bnorm + (size_t)pair * n;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int slab = 16 * warp;
-  const int tiles = (n + BN - 1) / BN;
-
-  auto load_b = [&](int tile) {
-    if (tile >= tiles) return;
-    const int n0 = tile * BN;
-    unsigned char* dst = Bs + (tile % L::RAW) * L::TILE;
-    for (int e = tid; e < BN * L::CHUNKS; e += THREADS) {
-      const int r = e / L::CHUNKS, c = e % L::CHUNKS;
-      const bool ok = n0 + r < n;
-      cp_async16(dst + L::at(r, c),
-                 bp + (size_t)(ok ? n0 + r : 0) * L::ROW_BYTES + c * 16, ok);
-    }
-    if (tid < BN) {  // a column past n reads +inf: it never wins
-      float* dn = bn_s + (tile % L::RAW) * BN + tid;
-      if (n0 + tid < n) cp_async4(dn, bnp + n0 + tid);
-      else *dn = __int_as_float(0x7f800000);
-    }
-  };
-
-  for (int e = tid; e < BM * L::CHUNKS; e += THREADS) {
-    const int r = e / L::CHUNKS, c = e % L::CHUNKS;
-    const bool ok = row0 + r < m;
-    cp_async16(As + r * L::LDA + c * 16,
-               ap + (size_t)(ok ? row0 + r : 0) * L::ROW_BYTES + c * 16, ok);
-  }
-  load_b(0);
-  cp_async_commit();  // group: A and B's first tile
-  load_b(1);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  unsigned afr[STEPS][4];
-  {
-    const int r = lane & 7, j = lane >> 3;
-#pragma unroll
-    for (int s = 0; s < STEPS; ++s)
-      ldmatrix_x4(afr[s], As + (slab + r + 8 * (j & 1)) * L::LDA + s * STEP_BYTES
-                              + 16 * (j >> 1));
-  }
-  fence_proxy_async();
-  __syncthreads();
-
-  Op op;
-  op.init();
-  auto issue = [&](float (&acc)[ACC], int tile) {
-    issue_tile(acc, afr, Bs + (tile % L::RAW) * L::TILE);
-  };
-  auto fold = [&](const float (&acc)[ACC], int tile) {
-    op.fold(acc, bn_s + (tile % L::RAW) * BN, tile * BN, t);
-  };
-
-  float acc[ACC];
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.0f;
-  if constexpr (F != PIPE) {
-    for (int tile = 0; tile < tiles; ++tile) {
-      issue(acc, tile);
-      load_b(tile + 2);
-      cp_async_commit();   // possibly empty: the group count stays in step
-      cp_async_wait<1>();  // this thread's copies of the next tile
-      fence_proxy_async();
-      wgmma_wait();
-      fold(acc, tile);
-      __syncthreads();     // the next tile's copies are everyone's
-    }
-  } else {
-    float acc2[ACC];
-#pragma unroll
-    for (int i = 0; i < ACC; ++i) acc2[i] = 0.0f;
-    issue(acc, 0);
-    auto step = [&](float (&cur)[ACC], float (&next)[ACC], int tile) {
-      wgmma_wait();
-      cp_async_wait<0>();
-      fence_proxy_async();
-      __syncthreads();
-      load_b(tile + 2);
-      cp_async_commit();
-      if (tile + 1 < tiles) issue(next, tile + 1);
-      fold(cur, tile);
-    };
-    for (int tile = 0; tile < tiles; tile += 2) {
-      step(acc, acc2, tile);
-      if (tile + 1 < tiles) step(acc2, acc, tile + 1);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float v1, v2;
-    int i;
-    Op::emit(op.finish(r), base, v1, i, v2);
-    const int row = row0 + slab + g + 8 * r;
-    if (t == 0 && row < m) {
-      const size_t o = (size_t)pair * m + row;
-      min1_out[o] = v1;
-      idx1_out[o] = i;
-      min2_out[o] = v2;
-    }
-  }
-}
-
-template <int F>
-int launch_k1loop(const void* a, const void* b, const void* bnorm, int pairs,
-                  int m, int n, float base, void* min1, void* idx1, void* min2,
-                  void* stream) {
-  constexpr int smem = Layout<Bf16>::SMEM;
-  static bool attribute_set = false;
-  if (!attribute_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fold_kernel_k1loop<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attribute_set = true;
-  }
-  dim3 grid((m + BM - 1) / BM, pairs);
-  fold_kernel_k1loop<F><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<const float*>(bnorm), m, n, base, static_cast<float*>(min1),
-      static_cast<int*>(idx1), static_cast<float*>(min2));
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// nm_fold_variant with the consumer warpgroups not taking turns.
-extern "C" int nm_fold_variant_noturns(int fold, const void* a, const void* b,
-                                       const void* bnorm, int pairs, int m,
-                                       int n, int d, float base, void* min1,
-                                       void* idx1, void* min2, int splits,
-                                       void* scratch, void* counters,
-                                       void* stream) {
-  CUtensorMap bmap;
-  const int rc = prepare(&bmap, b, pairs, m, n, d, splits, scratch, counters);
-  if (rc != 0) return rc;
-#define NM_FOLD(F)                                                       \
-  case F:                                                                \
-    return launch<F, false>(bmap, a, bnorm, pairs, m, n, splits, base,   \
-                            min1, idx1, min2, scratch, counters, stream);
-  switch (fold) {
-    NM_FOLD(GEMM)
-    NM_FOLD(ROWSUM)
-    NM_FOLD(MIN1)
-    NM_FOLD(CURRENT)
-    NM_FOLD(PIPE)
-    NM_FOLD(TOP2NOI)
-    NM_FOLD(TOP2IDX)
-    NM_FOLD(SLOTPACK)
-    NM_FOLD(BF16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef NM_FOLD
-}
-
-// The K1-loop kernel for one fold variant (no column splits).
-extern "C" int nm_fold_variant_k1loop(int fold, const void* a, const void* b,
-                                      const void* bnorm, int pairs, int m,
-                                      int n, int d, float base, void* min1,
-                                      void* idx1, void* min2, void* stream) {
-  if (d != D || pairs <= 0 || m <= 0 || n <= 0 || pairs > 65535 ||
-      n > KEY_COLS + 1)
-    return (int)cudaErrorInvalidValue;
-#define NM_FOLD(F) \
-  case F:          \
-    return launch_k1loop<F>(a, b, bnorm, pairs, m, n, base, min1, idx1, min2, stream);
-  switch (fold) {
-    NM_FOLD(GEMM)
-    NM_FOLD(ROWSUM)
-    NM_FOLD(MIN1)
-    NM_FOLD(CURRENT)
-    NM_FOLD(PIPE)
-    NM_FOLD(TOP2NOI)
-    NM_FOLD(TOP2IDX)
-    NM_FOLD(SLOTPACK)
-    NM_FOLD(BF16)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef NM_FOLD
-}
-#endif  // NM_TIMING_VARIANTS

@@ -53,14 +53,7 @@
 
 namespace {
 
-// Timing variants, the template argument V of the kernel: 0 is the
-// function; each bit leaves one part of the work out.  Only a build with
-// NM_TIMING_VARIANTS (tools/k1_variants.py) instantiates the others.
-constexpr int SKIP_FOLD = 1;     // the fold only sums the accumulators
-constexpr int SKIP_PRODUCT = 2;  // no wgmma: the fold sees zero products
-constexpr int SKIP_STREAM = 4;   // B's first tile stands in for every tile
-
-template <class Mode, int V>
+template <class Mode>
 __global__ void __launch_bounds__(THREADS, 1)
 match_top2_kernel(const typename Mode::T* __restrict__ a,
                   const typename Mode::T* __restrict__ b,
@@ -86,10 +79,9 @@ match_top2_kernel(const typename Mode::T* __restrict__ a,
   const int g = lane >> 2, t = lane & 3;
   const int slab = 16 * warp;  // the warp's 16 rows: 64 per warpgroup
   const int tiles = (n + BN - 1) / BN;
-  auto stage = [&](int tile) { return (V & SKIP_STREAM) ? 0 : tile; };
 
   auto load_b = [&](int tile) {
-    if (tile >= tiles || ((V & SKIP_STREAM) && tile > 0)) return;
+    if (tile >= tiles) return;
     const int n0 = tile * BN;
     unsigned char* dst = Bs + (tile % L::RAW) * L::TILE;
     for (int e = tid; e < BN * L::CHUNKS; e += THREADS) {
@@ -109,7 +101,7 @@ match_top2_kernel(const typename Mode::T* __restrict__ a,
   auto split_b = [&](int tile) {
     if (Mode::HALVES == 1 || tile >= tiles) return;
     const float4* raw = reinterpret_cast<const float4*>(
-        Bs + (stage(tile) % L::RAW) * L::TILE);
+        Bs + (tile % L::RAW) * L::TILE);
     float4* hi = reinterpret_cast<float4*>(As + (tile & 1) * 2 * L::TILE);
     float4* lo = hi + L::TILE / 16;
     for (int i = tid; i < L::TILE / 16; i += THREADS) {
@@ -181,7 +173,7 @@ match_top2_kernel(const typename Mode::T* __restrict__ a,
   // slab + g (+8 for q >= 2), column 8 j + 2 t (+1 for odd q) of the tile,
   // and the columns are visited in increasing order.
   auto fold = [&](const float (&acc)[ACC], int tile) {
-    const float* bnt = bn_s + (stage(tile) % L::RAW) * BN;
+    const float* bnt = bn_s + (tile % L::RAW) * BN;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -191,10 +183,6 @@ match_top2_kernel(const typename Mode::T* __restrict__ a,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float v = acc[4 * j + 2 * r + odd];
-          if constexpr ((V & SKIP_FOLD) != 0) {
-            m2[r][odd] += v;
-            continue;
-          }
           const float d = bv - 2.0f * v;
           if (d < m1[r][odd]) {
             m2[r][odd] = m1[r][odd];
@@ -216,23 +204,21 @@ match_top2_kernel(const typename Mode::T* __restrict__ a,
   for (int tile = 0; tile < tiles; ++tile) {
     const unsigned char* hi =
         Mode::HALVES == 2 ? As + (tile & 1) * 2 * L::TILE
-              : Bs + (stage(tile) % L::RAW) * L::TILE;
+              : Bs + (tile % L::RAW) * L::TILE;
     const unsigned char* lo = hi + L::TILE;
-    if constexpr ((V & SKIP_PRODUCT) == 0) {
-      wgmma_fence();
+    wgmma_fence();
 #pragma unroll
-      for (int s = 0; s < STEPS; ++s) {
-        const int kb = s * STEP_BYTES / 16 * 128;  // two core matrices a step
-        if (Mode::HALVES == 2) {
-          Mode::wgmma(acc, afr[Mode::HALVES - 1][s],
-                      smem_desc(hi + kb, lbo, sbo), s > 0);
-          Mode::wgmma(acc, afr[0][s], smem_desc(lo + kb, lbo, sbo), 1);
-        }
-        Mode::wgmma(acc, afr[0][s], smem_desc(hi + kb, lbo, sbo),
-                    Mode::HALVES == 2 || s > 0);
+    for (int s = 0; s < STEPS; ++s) {
+      const int kb = s * STEP_BYTES / 16 * 128;  // two core matrices a step
+      if (Mode::HALVES == 2) {
+        Mode::wgmma(acc, afr[Mode::HALVES - 1][s],
+                    smem_desc(hi + kb, lbo, sbo), s > 0);
+        Mode::wgmma(acc, afr[0][s], smem_desc(lo + kb, lbo, sbo), 1);
       }
-      wgmma_commit();
+      Mode::wgmma(acc, afr[0][s], smem_desc(hi + kb, lbo, sbo),
+                  Mode::HALVES == 2 || s > 0);
     }
+    wgmma_commit();
     load_b(tile + 2);
     cp_async_commit();  // possibly empty: the group count stays in step
     cp_async_wait<1>();  // this thread's copies of the next tile
@@ -271,7 +257,7 @@ match_top2_kernel(const typename Mode::T* __restrict__ a,
   }
 }
 
-template <class Mode, int V>
+template <class Mode>
 int launch(const void* a, const void* b, const void* anorm, const void* bnorm,
            int pairs, int m, int n, int d, void* min1, void* idx1, void* min2,
            void* stream) {
@@ -281,14 +267,14 @@ int launch(const void* a, const void* b, const void* anorm, const void* bnorm,
   static bool attribute_set = false;  // once per kernel, before any capture
   if (!attribute_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        match_top2_kernel<Mode, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        match_top2_kernel<Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
     attribute_set = true;
   }
   using T = typename Mode::T;
   dim3 grid((m + BM - 1) / BM, pairs);
-  match_top2_kernel<Mode, V>
+  match_top2_kernel<Mode>
       <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(a), static_cast<const T*>(b),
           static_cast<const float*>(anorm), static_cast<const float*>(bnorm),
@@ -303,37 +289,14 @@ extern "C" int nm_match_top2_f32(const void* a, const void* b,
                                  const void* anorm, const void* bnorm,
                                  int pairs, int m, int n, int d, void* min1,
                                  void* idx1, void* min2, void* stream) {
-  return launch<F32x3, 0>(a, b, anorm, bnorm, pairs, m, n, d, min1, idx1,
-                          min2, stream);
+  return launch<F32x3>(a, b, anorm, bnorm, pairs, m, n, d, min1, idx1, min2,
+                       stream);
 }
 
 extern "C" int nm_match_top2_bf16(const void* a, const void* b,
                                   const void* anorm, const void* bnorm,
                                   int pairs, int m, int n, int d, void* min1,
                                   void* idx1, void* min2, void* stream) {
-  return launch<Bf16, 0>(a, b, anorm, bnorm, pairs, m, n, d, min1, idx1, min2,
-                         stream);
+  return launch<Bf16>(a, b, anorm, bnorm, pairs, m, n, d, min1, idx1, min2,
+                      stream);
 }
-
-#ifdef NM_TIMING_VARIANTS
-// A timing variant (one SKIP_* bit) of either mode.
-extern "C" int nm_match_top2_variant(int bf16, int variant, const void* a,
-                                     const void* b, const void* anorm,
-                                     const void* bnorm, int pairs, int m,
-                                     int n, int d, void* min1, void* idx1,
-                                     void* min2, void* stream) {
-#define NM_VARIANT(V)                                                       \
-  case V:                                                                   \
-    return bf16 ? launch<Bf16, V>(a, b, anorm, bnorm, pairs, m, n, d, min1, \
-                                  idx1, min2, stream)                       \
-                : launch<F32x3, V>(a, b, anorm, bnorm, pairs, m, n, d,      \
-                                   min1, idx1, min2, stream);
-  switch (variant) {
-    NM_VARIANT(1)
-    NM_VARIANT(2)
-    NM_VARIANT(4)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef NM_VARIANT
-}
-#endif

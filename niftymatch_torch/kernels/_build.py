@@ -4,15 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under
 ``build/niftymatch_torch/`` at the repository root, named by a hash of the
 source, the ``csrc/`` headers it includes and the flags, so an edited
-source or header is rebuilt on its next use.  A library named
-``<source>_timing`` is the same source built with ``NM_TIMING_VARIANTS``,
-which adds its kernels' timing variants (parts of the work left out) for
-``tools/k1_variants.py``, ``tools/k2_variants.py`` and
-``tools/k3_variants.py``, and in ``windows_timing`` a check of K2's
-division against CUDA's ``/``; the package's own libraries do not hold
-them.  The libraries are loaded with ``ctypes``; every C entry point
-returns ``cudaGetLastError()`` after its launch and ``check`` raises on
-anything but 0.
+source or header is rebuilt on its next use.  The libraries are loaded
+with ``ctypes``; every C entry point returns ``cudaGetLastError()`` after
+its launch and ``check`` raises on anything but 0.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.  ``build_all`` starts one ``nvcc`` per source
@@ -55,7 +49,6 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 EXTRA_FLAGS = {"windows": ["-fmad=false"], "descriptors": [], "match": [],
                "fold_micro": [], "refine": [], "linalg": []}
 SOURCES = tuple(EXTRA_FLAGS)
-TIMING = "_timing"
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 LAUNCHES = {"k1_match_top2": 0, "k1_match_top2_bf16": 0,
@@ -87,13 +80,11 @@ def _nvcc() -> str:
 
 
 def _source(name: str) -> Path:
-    return CSRC_DIR / f"{name.removesuffix(TIMING)}.cu"
+    return CSRC_DIR / f"{name}.cu"
 
 
 def _flags(name: str):
-    source = name.removesuffix(TIMING)
-    timing = ["-DNM_TIMING_VARIANTS"] if source != name else []
-    return ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS[source] + timing
+    return ARCH_FLAGS + COMMON_FLAGS + EXTRA_FLAGS[name]
 
 
 def _lib_path(name: str) -> Path:

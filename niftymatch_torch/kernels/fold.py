@@ -17,10 +17,8 @@ materialised d.  K1 itself on the same operands (the TPU benchmark's
 the kernel; there is no fallback from one to the other.  The kernel splits
 each pair's B rows into ``column_splits`` parts, one CTA each, and merges
 their partial results in column order; ``fold_variant_plain`` takes the same
-decomposition as ``splits``.  ``fold_variant_ablation`` launches the
-kernel without its warpgroups' turns, or the K1-loop kernel (K1's tile loop),
-from the timing library, for timing only.  No main path of the system runs
-K4: ``tools/fold_micro.py`` times it.
+decomposition as ``splits``.  No main path of the system runs K4:
+``tools/fold_micro.py`` times it.
 """
 
 from __future__ import annotations
@@ -46,8 +44,6 @@ MAX_SPLITS = 8        # parts of a pair's columns at most
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P]
 _SIGNATURES = {"nm_fold_variant": _ARGS + [_I, _P, _P, _P]}
-_TIMING_SIGNATURES = {"nm_fold_variant_noturns": _ARGS + [_I, _P, _P, _P],
-                      "nm_fold_variant_k1loop": _ARGS + [_P]}
 SCRATCH_WORDS = 1 << 20   # the partials' buffer at least, so it is rarely regrown
 SCRATCH_COUNTERS = 4096
 _SCRATCH: dict = {}       # device index -> (partials int32, counters int32)
@@ -217,35 +213,6 @@ def fold_variant(a_mat, b_mat, b_norm, fold: str, base: float = BIG):
     if not batched:
         return min1[0], idx1[0], min2[0]
     return min1, idx1, min2
-
-
-def fold_variant_ablation(a_mat, b_mat, b_norm, fold: str, kernel: str,
-                          base: float = BIG):
-    """One of K4's kernels kept for timing beside ``fold_variant``'s, from
-    the ``fold_micro_timing`` library, with the same results: ``kernel``
-    "noturns", the package's kernel with the consumer warpgroups not taking
-    turns on the tensor cores, or "k1loop", the kernel on K1's tile loop
-    (one CTA a 128-row block and pair, no column split).  Takes (P, M, 128)
-    and (P, N, 128) CUDA operands; not counted in ``K4_LAUNCHES``."""
-    pairs, m, d = a_mat.shape
-    n = b_mat.shape[1]
-    _build.require_cuda("a_mat", a_mat, torch.bfloat16, (pairs, m, 128))
-    _build.require_cuda("b_mat", b_mat, torch.bfloat16, (pairs, n, 128))
-    _build.require_cuda("b_norm", b_norm, torch.float32, (pairs, n))
-    out = [torch.empty((pairs, m), dtype=t, device=a_mat.device)
-           for t in (torch.float32, torch.int32, torch.float32)]
-    args = [FOLDS.index(fold), a_mat.data_ptr(), b_mat.data_ptr(), b_norm.data_ptr(),
-            pairs, m, n, d, base] + [t.data_ptr() for t in out]
-    lib = _build.load("fold_micro" + _build.TIMING, _TIMING_SIGNATURES)
-    if kernel == "noturns":
-        rc = lib.nm_fold_variant_noturns(*args, *_split_args(a_mat.device, pairs, m, n),
-                                         _build.stream_ptr(a_mat))
-    elif kernel == "k1loop":
-        rc = lib.nm_fold_variant_k1loop(*args, _build.stream_ptr(a_mat))
-    else:
-        raise ValueError(f"unknown K4 ablation {kernel!r}; expected noturns or k1loop")
-    _build.check(rc, f"K4 fold {fold} ({kernel})")
-    return tuple(out)
 
 
 def _split_args(device, pairs: int, m: int, n: int):

@@ -42,6 +42,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _K2_SIGNATURES = {
     "nm_orientation_hists": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                              _P, _P, _P, _I, _I, ctypes.c_float, _P, _P],
+    # K2's branch-free division against CUDA's `/` (a card test runs it).
+    "nm_quotient_check": [ctypes.c_float, ctypes.c_uint, ctypes.c_uint, _I,
+                          _P, _P, _P],
 }
 _K3_SIGNATURES = {
     "nm_descriptors": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

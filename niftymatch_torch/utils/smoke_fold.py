@@ -49,17 +49,14 @@ def plant_ties(ops, ties):
     return a_mat, a_norm, b_mat, b_norm
 
 
-def call(variant: str, ops, kernel: str | None = None):
-    """One launch of ``variant`` on ``operands``' tensors; ``kernel``: one of
-    ``fold.fold_variant_ablation``'s kernels instead of the package's."""
+def call(variant: str, ops):
+    """One launch of ``variant`` on ``operands``' tensors."""
     from ..kernels import fold
     from ..kernels.match import fused_match_topk_prepared
 
     a_mat, a_norm, b_mat, b_norm = ops
     if variant == "full":
         return fused_match_topk_prepared(a_mat, b_mat, a_norm, b_norm)
-    if kernel is not None:
-        return fold.fold_variant_ablation(a_mat, b_mat, b_norm, variant, kernel)
     return fold.fold_variant(a_mat, b_mat, b_norm, variant)
 
 
@@ -73,17 +70,14 @@ def work(k: int, nb: int, variant: str):
 
 
 def run(k: int, nb: int, timer, bound, variants=VARIANTS, reps: int = REPS,
-        device="cuda", ablations=()):
+        device="cuda"):
     """One row per variant: ``ms``, the mean replay of a CUDA graph of one
     launch (``timer(fn, reps)``), and ``ms_in_run``, a launch's share of a
     graph of ``GRAPH_RUN`` (``timer(fn, reps, GRAPH_RUN)``); the bound
     (``bound(nbytes, ops)`` gives (ms, "bytes" or "operations")), the
     percent of the bound reached, the µs above the ``rowsum`` floor (a
     full-row sum: every product consumed, one add each), and
-    ``timer_floor_ms``, the replay of a graph of one 1-element ``zero_()``.
-    For each kernel in ``ablations`` (``fold.fold_variant_ablation``'s:
-    "noturns", "k1loop"), also ``ms_<kernel>`` and ``ms_<kernel>_in_run``,
-    timed the same way right after."""
+    ``timer_floor_ms``, the replay of a graph of one 1-element ``zero_()``."""
     ops = operands(k, nb, device)
     zero = torch.zeros(1, device=device)
     timer_floor = timer(zero.zero_, reps)
@@ -94,10 +88,6 @@ def run(k: int, nb: int, timer, bound, variants=VARIANTS, reps: int = REPS,
         row = {"fold": v, "k": k, "nb": nb, "ms": timer(fn, reps),
                "ms_in_run": timer(fn, reps, GRAPH_RUN), "bound_ms": bound_ms,
                "bound_by": bound_by, "timer_floor_ms": timer_floor}
-        for kernel in ablations if v != "full" else ():
-            other = lambda: call(v, ops, kernel)  # noqa: E731
-            row[f"ms_{kernel}"] = timer(other, reps)
-            row[f"ms_{kernel}_in_run"] = timer(other, reps, GRAPH_RUN)
         row["pct_of_bound"] = 100.0 * bound_ms / row["ms"]
         rows.append(row)
     floor = next((r["ms"] for r in rows if r["fold"] == "rowsum"), None)

@@ -1,8 +1,11 @@
 """How the port's kernels are built and how their bounds are counted, on
 the CPU: a library's name follows its source and the headers it includes,
-the timing variants live only in their own libraries, and
-``chip_smoke.bound`` charges K1 at the tensor cores' rates."""
+each source builds one library whose entry points are the ones the
+wrappers load, and ``chip_smoke.bound`` charges K1 at the tensor cores'
+rates."""
 
+import ast
+import importlib
 import re
 import shutil
 
@@ -47,22 +50,32 @@ def test_library_name_follows_source_and_headers(csrc_copy, name):
     assert _build._lib_path(name) not in (before, after_header)
 
 
-@pytest.mark.parametrize("name,entry", [("match", "nm_match_top2_variant"),
-                                        ("descriptors", "nm_descriptors_variant"),
-                                        ("windows", "nm_orientation_hists_variant"),
-                                        ("fold_micro", "nm_fold_variant_noturns"),
-                                        ("fold_micro", "nm_fold_variant_k1loop")])
-def test_timing_variants_build_only_into_their_own_library(name, entry):
-    """The timing variants' entry point is compiled only under
-    NM_TIMING_VARIANTS, which only the ``<source>_timing`` library sets."""
-    timing = name + _build.TIMING
-    assert "-DNM_TIMING_VARIANTS" in _build._flags(timing)
-    assert not any("TIMING" in f for n in _build.SOURCES for f in _build._flags(n))
-    assert _build._source(timing) == _build._source(name)
-    assert _build._lib_path(timing) != _build._lib_path(name)
-    text = _build._source(name).read_text()
-    assert text.index("#ifdef NM_TIMING_VARIANTS") < text.index(entry) \
-        < text.index("#endif", text.index("#ifdef NM_TIMING_VARIANTS"))
+def _loaded_entry_points():
+    """Library name -> the C functions that ``kernels/`` loads from it: the
+    keys of every ``_build.load("<name>", SIGNATURES)`` call's dict."""
+    loaded = {}
+    for path in sorted((_build.PKG_DIR / "kernels").glob("*.py")):
+        module = importlib.import_module(f"niftymatch_torch.kernels.{path.stem}")
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "load"
+                    and isinstance(node.func.value, ast.Name)
+                    and node.func.value.id == "_build"):
+                name, signatures = node.args
+                key = name.value if isinstance(name, ast.Constant) else ast.unparse(name)
+                loaded.setdefault(key, set()).update(getattr(module, signatures.id))
+    return loaded
+
+
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_each_source_builds_one_library_with_the_entry_points_it_loads(name):
+    """Each ``csrc/<name>.cu`` is built one way, with no macro of its own,
+    and every C function it exports is one that ``kernels/`` loads from that
+    library, and the other way round."""
+    assert not any(f.startswith("-D") for f in _build._flags(name))
+    exported = set(re.findall(r'extern "C"\s+\w+\s+(\w+)\s*\(',
+                              _build._source(name).read_text()))
+    assert exported and exported == _loaded_entry_points().get(name)
 
 
 def test_every_kernel_has_a_counter_and_flags():

@@ -329,12 +329,7 @@ def test_k2_division_matches_ieee():
     divisor) and over 2 sigma_w^2 for sigma_w = 3.45 (a weight's), and
     2^28 random pairs."""
     dev = cuda_device()
-    import ctypes
-
-    _build.build_all(("windows_timing",))
-    lib = _build.load("windows_timing", {"nm_quotient_check": [
-        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]})
+    lib = _build.load("windows", tw._K2_SIGNATURES)
     lo = int(np.float32(2.0 ** -60).view(np.uint32))
     hi = int(np.float32(2.0 ** 60).view(np.uint32))
     for d, first, count, mode in ((float(np.float32(2 * np.pi)), lo, hi - lo + 1, 0),
@@ -1058,22 +1053,6 @@ def test_k4_graph_replays_merge_splits():
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(u, v) for u, v in zip(out, direct))
-
-
-@pytest.mark.parametrize("kernel", ["noturns", "k1loop"])
-@pytest.mark.parametrize("fold", tf.FOLDS)
-def test_k4_ablations_match_plain(fold, kernel):
-    """The kernels kept in the timing library for comparison (without the
-    warpgroups' turns, and the K1-loop kernel) still compute each variant (at
-    (4,096, 1))."""
-    from niftymatch_torch.utils import smoke_fold
-
-    dev = cuda_device()
-    a_mat, _, b_mat, b_norm = smoke_fold.operands(4096, 1, dev)
-    got = tf.fold_variant_ablation(a_mat, b_mat, b_norm, fold, kernel)
-    want = tf.fold_variant_plain(a_mat, b_mat, b_norm, fold)
-    res = tf.agreement(fold, got, want, tf.distances(a_mat, b_mat, b_norm))
-    assert res["ok"], res
 
 
 @pytest.mark.parametrize("k,nb", [(1024, 16), (4096, 1)])

@@ -4,15 +4,12 @@ on a GPU: the counterpart of ``benchmarks/fold_micro.py``'s command line.
     python3 tools/fold_micro.py [--k 1024] [--nb 16] [--variants gemm rowsum ...]
                                 [--turns 2] [--reps 50]
 
-Builds the kernels and ``csrc/fold_micro.cu`` once more with its timing
-kernels (library ``fold_micro_timing``), and times each variant on
-``niftymatch_torch.utils.smoke_fold.operands`` with ``smoke_fold.run``:
-``ms``, the mean replay of a CUDA graph of one launch over all pairs
-(``chip_smoke.graph_ms``, the meaning K4's earlier rows have), ``ms_in_run``, a
-launch's share of a graph of 20, and the same two, right after, of the
-kernel whose consumer warpgroups do not take turns (``ms_noturns``) and of
-the K1-loop kernel (``ms_k1loop``); ``full`` is K1 in bf16 on the same operands.
-The whole sweep runs ``--turns`` times.  Prints one JSON row per variant and turn: the times,
+Builds K1 and K4 (``csrc/match.cu``, ``csrc/fold_micro.cu``) and times each
+variant on ``niftymatch_torch.utils.smoke_fold.operands`` with
+``smoke_fold.run``: ``ms``, the mean replay of a CUDA graph of one launch
+over all pairs (``chip_smoke.graph_ms``, the meaning K4's earlier rows
+have), and ``ms_in_run``, a launch's share of a graph of 20; ``full`` is K1
+in bf16 on the same operands.  The whole sweep runs ``--turns`` times.  Prints one JSON row per variant and turn: the times,
 the bound (2 nb k^2 128 operations at the tensor cores' bf16 rate, or the
 operands' bytes at the memory rate, whichever is larger), the percent of
 the bound reached, the µs above the ``rowsum`` floor, and the replay of a
@@ -48,11 +45,10 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    _build.build_all(("match", "fold_micro", "fold_micro" + _build.TIMING))
+    _build.build_all(("match", "fold_micro"))
     for turn in range(args.turns):
         rows = smoke_fold.run(args.k, args.nb, chip_smoke.graph_ms, chip_smoke.bf16_bound,
-                              args.variants, args.reps,
-                              ablations=("noturns", "k1loop"))
+                              args.variants, args.reps)
         for row in rows:
             print(json.dumps({"turn": turn, **row}))
     print(chip_smoke.card_line())
