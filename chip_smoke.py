@@ -3,6 +3,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py linalg     # phase 8f alone, with its build
+    python3 chip_smoke.py ransac     # phase 8g alone, with its builds
 
 Builds the hand-written kernels from ``niftymatch_torch/csrc`` and drives the
 port's main path, the flagship forward step: SIFT detect + describe on
@@ -121,7 +122,12 @@ Phases (any failed check raises, so the script exits non-zero):
      plain versions on the card and a rerun (bit for bit), with each
      kernel's ms in a graph of one launch and of 20, its floor (no sweeps
      or iterations), its bound, the plain version's ms and
-     ``torch.linalg.svd`` / ``eigh`` at the same batch;
+     ``torch.linalg.svd`` / ``eigh`` at the same batch; (8g) RANSAC's two
+     kernels (``kernels/ransac.py``, ``csrc/ransac.cu``) for "essential"
+     and "homography" at the SLAM frame's (I, N) = (512, 1,024) against
+     ``ransac_plain`` on the card with one draw and a rerun (bit for bit),
+     with each launch's ms in a graph of one, both in a graph of one and of
+     20, their bound and the plain version's ms;
   9. SLAM loop closure on the card (``niftymatch_torch/utils/smoke_closure.py``):
      (9a) the 12-keyframe closed loop of ``tests/test_slam_e2e.py`` on the
      card and on the CPU with one injected draw (candidates equal up to
@@ -220,6 +226,7 @@ REFINE_OPS_COST = REFINE_OPS_RESIDUAL + 4
 REFINE_OPS_JACOBIAN = REFINE_OPS_RESIDUAL + 179
 REFINE_ITERATIONS = 10          # refine_relative_pose's default, as the SLAM calls it
 REFINE_PAIRS = 8                # consecutive frame pairs of 8b's clip
+RANSAC_ITERS = 512             # the SLAM frame's hypotheses a RANSAC (8g)
 # 8e's bars against the float64 polish.  On 8b's small-baseline pairs the
 # cost valley is flat to fp32: two fp32 implementations of the same steps
 # end up to ~1e-3 apart in R and t (the plain fp32 version 4.3e-4 from the
@@ -249,6 +256,35 @@ LINALG_ITERATIONS = 8          # smallest_eigvec's default, as every caller runs
 def eigvec_ops(n, iterations=LINALG_ITERATIONS):
     factor = n * (n + 1) * (2 * n + 1) // 3 + n + n * (n - 1) // 2
     return n + 3 + factor + iterations * (2 * (n * n + n) + 3 * n + 2)
+
+
+# fp32 operations of RANSAC's two launches (``csrc/ransac.cu``), counted as
+# above.  A fit from m points: the two Hartley normalisations, 16 a point
+# (two sums, the centring, the norm and its weight, each side) and 12 for
+# the means and scales; the normalised coordinates 4 a point; the normal
+# matrix's 45 entries, 3 a row (weight, product, sum): E one 8-point row a
+# point (5 to form it), H two DLT rows (6 to form them); the smallest
+# eigenvector at n = 9; then E two svd3x3, two rank-2 rebuilds (45 each),
+# Td^T F Ts (90) and two unit norms (28 each), H Hn Ts (45), the adjugate
+# and determinant (35), its product (45) and 18 divisions.  An error:
+# Sampson 34 and its count 2, the transfer error 22 and its MSAC term 2.
+RANSAC_SAMPLE = {"essential": 8, "homography": 4}
+RANSAC_POINT_OPS = {"essential": 16 + 4 + 5 + 45 * 3, "homography": 16 + 4 + 6 + 2 * 45 * 3}
+RANSAC_SOLVE_OPS = {
+    "essential": 12 + eigvec_ops(9) + 2 * (SVD3X3_OPS + LINALG_SWEEPS * SVD3X3_OPS_SWEEP)
+    + 2 * 45 + 90 + 2 * 28,
+    "homography": 12 + eigvec_ops(9) + 45 + 35 + 45 + 18,
+}
+RANSAC_ERROR_OPS = {"essential": 36, "homography": 24}
+
+
+def ransac_ops(model, iters, n):
+    """The operations of one two-launch RANSAC: I fits from a sample and
+    their errors over N points, then the refit over N and its three passes
+    of errors (the winner's flags, the refit's score, its flags)."""
+    fit = RANSAC_POINT_OPS[model] * RANSAC_SAMPLE[model] + RANSAC_SOLVE_OPS[model]
+    refit = RANSAC_POINT_OPS[model] * n + RANSAC_SOLVE_OPS[model]
+    return iters * (fit + n * RANSAC_ERROR_OPS[model]) + refit + 3 * n * RANSAC_ERROR_OPS[model]
 
 
 def make_scene(h, w, seed, n_blobs, device):
@@ -489,14 +525,20 @@ def synthetic_correspondences(model, seed):
 def profiled_launches(fn, top=4):
     """Device events of one call of ``fn`` under torch.profiler: kernels,
     copies and sets apart, the device's busy ms (summed event time) and
-    the ``top`` kernel names by device time."""
+    the ``top`` kernel names by device time.  The session waits
+    ``profiling.CLOCK_PAD_S`` before and after the call, so that no kernel
+    falls outside it by the profiler's clock offset."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from niftymatch_torch.utils.profiling import CLOCK_PAD_S
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(CLOCK_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(CLOCK_PAD_S)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
     copies = sum(1 for e in events if e.name.startswith(("Memcpy", "Memset")))
@@ -648,9 +690,9 @@ def mosaic_phase(nt, dev):
     assert all(i["registered"] for i in infos), "a mosaic frame did not register"
     assert launches == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
                         "k2_orientation_hist": 1, "k3_descriptor": 1, "refine_gn": 0,
-                        "svd3x3": 0, "smallest_eigvec": 2}, \
-        ("add_frame did not launch K1 twice, K2 and K3 once and smallest_eigvec "
-         "twice")
+                        "svd3x3": 0, "smallest_eigvec": 0, "ransac_hypotheses": 1,
+                        "ransac_refit": 1}, \
+        "add_frame did not launch K1 twice and K2, K3 and RANSAC's two kernels once"
     chain_err = float(np.abs(corners_of(mb.frame_to_canvas())
                              - corners_of(anchor @ np.linalg.inv(truths[0]) @ truths[-1])).max())
     canvas = mb.result()
@@ -926,6 +968,82 @@ def linalg_phase(dev):
     return rows
 
 
+def ransac_inputs(model, dev):
+    """The SLAM frame's RANSAC shape, (I, N) = (512, 1,024): every other of
+    ``synthetic_correspondences``' points (a third outliers) as CUDA
+    tensors, an all-valid mask, one (I, N) Gumbel draw and the threshold."""
+    import torch
+
+    src, dst, _, _, tau = synthetic_correspondences(model, 211 + len(model))
+    n = src.shape[0] // 2
+    draw = np.random.default_rng(17).gumbel(size=(RANSAC_ITERS, n)).astype(np.float32)
+    src, dst, draw = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                      for a in (src[::2], dst[::2], draw))
+    return src, dst, torch.ones(n, dtype=torch.bool, device=dev), draw, tau
+
+
+def ransac_phase(dev):
+    """8g: RANSAC's two kernels (``kernels/ransac.py``, ``csrc/ransac.cu``)
+    for "essential" and "homography" at the SLAM frame's shape against
+    ``ransac_plain`` on the card with the same draw (the same success,
+    corners within 1e-3 px or entries within 1e-3 up to sign, inlier flags
+    that differ only within 1e-4 tau of tau) and a rerun (bit for bit),
+    the kernels of one ``ransac`` call, then each launch's ms in a graph of
+    one, both in a graph of one and of 20, the bound and the plain
+    version's ms.  Raises outside the tolerances.  Returns the kernels
+    line's rows."""
+    import torch
+
+    import niftymatch_torch as nt
+    from niftymatch_torch.geometry.ransac import ransac_plain
+    from niftymatch_torch.kernels import ransac as kr
+    from niftymatch_torch.utils import smoke_ransac
+
+    rows = {}
+    for model in ("essential", "homography"):
+        src, dst, mask, draw, tau = ransac_inputs(model, dev)
+        iters, n = draw.shape
+        cfg = nt.RansacConfig(iterations=iters, inlier_threshold=tau)
+        got = nt.ransac(src, dst, mask, cfg, model=model, scores=draw, device=dev)
+        again = nt.ransac(src, dst, mask, cfg, model=model, scores=draw, device=dev)
+        want = ransac_plain(src, dst, mask, cfg, model=model, scores=draw, device=dev)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"ransac {model}: two kernel runs differ"
+        gaps = smoke_ransac.fit_gaps(model, got, want, src, dst, tau, extent=(W - 1, H - 1))
+        assert bool(got.success), f"ransac {model}: no success"
+        smoke_ransac.check(model, got, want, gaps, tau)
+        launches = profiled_launches(
+            lambda: nt.ransac(src, dst, mask, cfg, model=model, scores=draw, device=dev))
+        models, keys = kr.hypotheses(src, dst, mask, draw, tau, model)
+        ops = ransac_ops(model, iters, n)
+        nbytes = 4 * iters * n + 17 * n + 2 * 4 * 10 * iters + 4 * 9 + n + 5
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows[model] = r = {
+            "iters": iters, "n": n, "num_inliers": int(got.num_inliers),
+            "plain_num_inliers": int(want.num_inliers), **gaps, "launches": launches,
+            "hypotheses_ms": graph_ms(lambda: kr.hypotheses(src, dst, mask, draw, tau, model),
+                                      20),
+            "refit_ms": graph_ms(lambda: kr.refit_winner(src, dst, mask, models, keys, tau,
+                                                         model), 20),
+            "ms": graph_ms(lambda: kr.ransac(src, dst, mask, draw, tau, model), 20),
+            "ms_in_run": graph_ms(lambda: kr.ransac(src, dst, mask, draw, tau, model), 20,
+                                  launches=20),
+            "plain_ms": cuda_ms(lambda: ransac_plain(src, dst, mask, cfg, model=model,
+                                                     scores=draw, device=dev), 5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes}
+        print(f"[ransac] {model} at (I, N) = ({iters}, {n}): {r['num_inliers']} inliers "
+              f"(plain {r['plain_num_inliers']}), transform {r['transform_gap']:.2e} from "
+              f"ransac_plain's, {r['flag_diffs']} flags differ (|err - tau| <= "
+              f"{r['flag_edge']:.2e}), a rerun equal "
+              f"bit for bit; one call {launches['kernels']} kernels; hypotheses "
+              f"{r['hypotheses_ms']:.5f} ms, refit {r['refit_ms']:.5f} ms, both "
+              f"{r['ms']:.5f} ms ({r['ms_in_run']:.5f} in a graph of 20), plain "
+              f"{r['plain_ms']:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} "
+              f"bytes, {ops} ops)")
+    return rows
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi reports them."""
     return subprocess.run(
@@ -934,20 +1052,28 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def linalg_only():
-    """``python3 chip_smoke.py linalg``: build the small-matrix solvers'
-    library and run :func:`linalg_phase` alone."""
+ALONE = {"linalg": (("linalg",), linalg_phase),
+         "ransac": (("linalg", "ransac"), ransac_phase)}
+
+
+def phase_alone(name):
+    """``python3 chip_smoke.py linalg|ransac``: build the libraries the
+    phase runs, print their ``ptxas -v`` lines, and run the phase alone."""
     import torch
 
     from niftymatch_torch.kernels import _build
+    from niftymatch_torch.utils.precision import exact_fp32
 
-    build_s = _build.build_all(("linalg",))
-    print(f"[build] linalg built in {build_s:.1f} s on {card_line()} (torch "
+    sources, phase = ALONE[name]
+    build_s = _build.build_all(sources)
+    print(f"[build] {', '.join(sources)} built in {build_s:.1f} s on {card_line()} (torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})")
-    for line in _build.build_log("linalg").splitlines():
-        if any(w in line for w in ("registers", "spill", "warning")):
-            print(f"[build] linalg.cu: {line.strip()}")
-    print(json.dumps({"linalg": linalg_phase(torch.device("cuda"))}))
+    for source in sources:
+        for line in _build.build_log(source).splitlines():
+            if any(w in line for w in ("registers", "spill", "warning")):
+                print(f"[build] {source}.cu: {line.strip()}")
+    exact_fp32()
+    print(json.dumps({name: phase(torch.device("cuda"))}))
 
 
 def main(args=()):
@@ -957,8 +1083,8 @@ def main(args=()):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    if list(args) == ["linalg"]:
-        return linalg_only()
+    if len(args) == 1 and args[0] in ALONE:
+        return phase_alone(args[0])
     import niftymatch_torch as nt
     from niftymatch_torch.features import Features
     from niftymatch_torch.kernels import _build
@@ -1103,7 +1229,8 @@ def main(args=()):
     launches = dict(_build.LAUNCHES)
     print(f"[batch] launches in one 8-pair chunk: {launches}")
     assert launches == {k: int(k not in ("k1_match_top2_bf16", "refine_gn", "svd3x3",
-                                         "smallest_eigvec"))
+                                         "smallest_eigvec", "ransac_hypotheses",
+                                         "ransac_refit"))
                         for k in launches}, "a kernel of the path did not run once"
     halves = [Features(*[t[:CHUNK] for t in fbatch]),
               Features(*[t[CHUNK:] for t in fbatch])]
@@ -1303,6 +1430,7 @@ def main(args=()):
     errs["refine"] = refine["max_abs_err"]
     bounds["refine"] = (*refine["bound"], refine["bytes"], refine["ops"], None)
     linalg = linalg_phase(dev)
+    ransac_rows = ransac_phase(dev)
     phase_s["8"], t_phase = time.perf_counter() - t_phase, time.perf_counter()
 
     # -- 9. SLAM loop closure ----------------------------------------------
@@ -1378,6 +1506,14 @@ def main(args=()):
           "dataset_launches": dataset_launches[name], **linalg[key]}
          for name, key in (("svd3x3", "svd3x3"), ("smallest_eigvec", "smallest_eigvec_n9"),
                            ("smallest_eigvec", "smallest_eigvec_n4"))
+         ] + [{"name": name, "model": model, "route": "cuda",
+               "source": "niftymatch_torch/csrc/ransac.cu", "replaces": None,
+               "launches": launches[name], "slam_launches": slam_launches[name],
+               "closure_launches": closure_launches[name],
+               "ring_launches": ring_launches[name],
+               "dataset_launches": dataset_launches[name], **ransac_rows[model]}
+              for model in ("essential", "homography")
+              for name in ("ransac_hypotheses", "ransac_refit")
          ] + [k4_row(v) for v in k4.FOLDS]
     print(json.dumps({"e2e": {"chunk_ms": chunk_ms, "keyframes_per_s": kf_s,
                               "host_chunk_ms": 1e3 * host_s / TIMED_CHUNKS,

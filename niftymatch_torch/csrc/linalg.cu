@@ -39,6 +39,9 @@
 // blocks.  Nothing is reduced across threads, so a rerun gives the same
 // bits.
 //
+// The device code of both solvers lives in linalg.cuh, which ransac.cu
+// also includes for its fits.
+//
 // Numerics: fp32 throughout, precise atan2f, sinf, cosf, sqrtf and IEEE
 // division (no --use_fast_math, no __sinf): the port runs fp32 with TF32
 // off.  nvcc may contract multiplies and adds, and the sums run in
@@ -47,63 +50,12 @@
 
 #include <cuda_runtime.h>
 
+#include "linalg.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int MAX_N = 9;
-
-// Rotation (p, q) of a 3 x 3 Jacobi sweep: A <- J^T A J, V <- V J, with J
-// the identity but for J[p][p] = J[q][q] = c, J[p][q] = s, J[q][p] = -s.
-template <int p, int q>
-__device__ __forceinline__ void rotate(float A[3][3], float V[3][3]) {
-  const float theta = 0.5f * atan2f(2.0f * A[p][q], A[q][q] - A[p][p]);
-  const float c = cosf(theta), s = sinf(theta);
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const float ap = A[r][p], aq = A[r][q];
-    A[r][p] = c * ap - s * aq;
-    A[r][q] = s * ap + c * aq;
-    const float vp = V[r][p], vq = V[r][q];
-    V[r][p] = c * vp - s * vq;
-    V[r][q] = s * vp + c * vq;
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float rp = A[p][k], rq = A[q][k];
-    A[p][k] = c * rp - s * rq;
-    A[q][k] = s * rp + c * rq;
-  }
-}
-
-// Compare-swap of eigenpairs a and b (w and V's columns): b goes first
-// when it is strictly larger.
-template <int a, int b>
-__device__ __forceinline__ void cswap_desc(float w[3], float V[3][3]) {
-  if (w[b] > w[a]) {
-    const float t = w[a];
-    w[a] = w[b];
-    w[b] = t;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const float u = V[r][a];
-      V[r][a] = V[r][b];
-      V[r][b] = u;
-    }
-  }
-}
-
-// max(x, lo) that keeps a NaN, as torch.clamp does (fmaxf drops it).
-__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-__device__ __forceinline__ void unit3(float v[3]) {
-  const float n = clamp_min(sqrtf(dot3(v, v)), 1e-20f);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) v[k] = v[k] / n;
-}
 
 __global__ void __launch_bounds__(THREADS)
 svd3x3_kernel(const float* __restrict__ E_in, float* __restrict__ U_out,
@@ -111,58 +63,8 @@ svd3x3_kernel(const float* __restrict__ E_in, float* __restrict__ U_out,
               int batch, int sweeps) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= batch) return;
-  float E[3][3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) E[r][c] = E_in[9 * i + 3 * r + c];
-
-  float A[3][3], V[3][3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      A[r][c] = E[0][r] * E[0][c] + E[1][r] * E[1][c] + E[2][r] * E[2][c];
-      V[r][c] = r == c ? 1.0f : 0.0f;
-    }
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int c = r + 1; c < 3; ++c) A[r][c] = A[c][r] = 0.5f * (A[r][c] + A[c][r]);
-
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-    rotate<0, 1>(A, V);
-    rotate<0, 2>(A, V);
-    rotate<1, 2>(A, V);
-  }
-
-  float w[3] = {A[0][0], A[1][1], A[2][2]};
-  cswap_desc<0, 1>(w, V);
-  cswap_desc<0, 2>(w, V);
-  cswap_desc<1, 2>(w, V);
-
-  float S[3], col[3][3];  // col[k] = E v_k / max(s_k, 1e-12)
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    S[k] = sqrtf(clamp_min(w[k], 0.0f));
-    const float d = clamp_min(S[k], 1e-12f);
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      col[k][r] = (E[r][0] * V[0][k] + E[r][1] * V[1][k] + E[r][2] * V[2][k]) / d;
-  }
-  float u1[3] = {col[0][0], col[0][1], col[0][2]};
-  unit3(u1);
-  const float proj = dot3(u1, col[1]);
-  float u2[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) u2[r] = col[1][r] - proj * u1[r];
-  unit3(u2);
-  float u3[3] = {u1[1] * u2[2] - u1[2] * u2[1], u1[2] * u2[0] - u1[0] * u2[2],
-                 u1[0] * u2[1] - u1[1] * u2[0]};
-  if (dot3(u3, col[2]) < 0.0f) {
-#pragma unroll
-    for (int r = 0; r < 3; ++r) u3[r] = -u3[r];
-  }
+  float S[3], u1[3], u2[3], u3[3], V[3][3];
+  svd3x3(E_in + 9 * i, sweeps, S, u1, u2, u3, V);
 
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -181,57 +83,8 @@ smallest_eigvec_kernel(const float* __restrict__ A_in, const float* __restrict__
                        float* __restrict__ x_out, int batch, int iterations) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= batch) return;
-  const float* a = A_in + (size_t)N * N * i;
-
-  float tr = 0.0f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) tr += a[N * j + j];
-  const float eps = 1e-6f * (tr / (float)N) + 1e-30f;
-
-  // The lower factor, a column at a time: L[k][j] for k >= j.
-  float L[N][N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float s = a[N * j + j] + eps;
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-    const float d = sqrtf(clamp_min(s, 1e-30f));
-    L[j][j] = d;
-#pragma unroll
-    for (int r = j + 1; r < N; ++r) {
-      float t = a[N * r + j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= L[r][k] * L[j][k];
-      L[r][j] = t / d;
-    }
-  }
-
   float x[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) x[k] = start[k];
-  for (int it = 0; it < iterations; ++it) {
-    float y[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {  // L y = x
-      float s = x[r];
-#pragma unroll
-      for (int k = 0; k < r; ++k) s -= L[r][k] * y[k];
-      y[r] = s / L[r][r];
-    }
-#pragma unroll
-    for (int r = N - 1; r >= 0; --r) {  // L^T x = y
-      float s = y[r];
-#pragma unroll
-      for (int k = r + 1; k < N; ++k) s -= L[k][r] * x[k];
-      x[r] = s / L[r][r];
-    }
-    float nn = 0.0f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) nn += x[k] * x[k];
-    const float inv = 1.0f / clamp_min(sqrtf(nn), 1e-30f);
-#pragma unroll
-    for (int k = 0; k < N; ++k) x[k] *= inv;
-  }
+  smallest_eigvec<N>(A_in + (size_t)N * N * i, start, iterations, x);
 #pragma unroll
   for (int k = 0; k < N; ++k) x_out[(size_t)N * i + k] = x[k];
 }

@@ -15,6 +15,11 @@ from ``config.seed``, which a torch ``Generator`` cannot reproduce.  Here
 the draw comes from a ``torch.Generator`` on the device seeded with
 ``config.seed`` (``-log`` of exponential samples), or is passed in as
 ``scores``; the tests pass in the JAX draw to compare the two packages.
+
+On CUDA tensors "essential" and "homography" run as two launches
+(``kernels/ransac.py``, ``csrc/ransac.cu``): the plain version,
+``ransac_plain``, which CPU tensors and the other four models take, is
+~370 launches a call, and the SLAM frame makes two calls.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import NamedTuple
 import torch
 
 from ..config import RansacConfig
+from ..kernels import ransac as _kernel
 from ..utils.precision import f32, resolve_device
+from ..utils.profiling import count
 from .fivepoint import fit_essential5
 from .transforms import (
     fit_essential,
@@ -129,7 +136,22 @@ def ransac(src, dst, mask, config: RansacConfig = RansacConfig(),
     ``config.inlier_threshold`` bounds the squared error (``ransac.h``).
     ``scores`` (optional, (config.iterations, N)) is the Gumbel noise that
     picks the samples; by default it is drawn from ``config.seed``.
-    ``refit`` refits by least squares on the winner's inliers."""
+    ``refit`` refits by least squares on the winner's inliers.  On CUDA,
+    "essential" and "homography" take the kernels; everything else takes
+    :func:`ransac_plain`."""
+    count("ransac.calls")
+    if resolve_device(device).type == "cuda" and model in _kernel.MODELS:
+        src, dst, mask, scores = _inputs(src, dst, mask, config, model, scores, device)
+        count("ransac.fused")
+        return RansacResult(*_kernel.ransac(src.contiguous(), dst.contiguous(),
+                                            mask.contiguous(), scores.contiguous(),
+                                            config.inlier_threshold, model, refit))
+    return ransac_plain(src, dst, mask, config, model, scores, refit, device)
+
+
+def _inputs(src, dst, mask, config: RansacConfig, model: str, scores, device):
+    """``src``, ``dst`` (float32), ``mask`` (bool) and the (iterations, N)
+    draw on the device, the draw made from ``config.seed`` when not given."""
     if model not in MIN_SAMPLES:
         raise ValueError(f"model must be one of {sorted(MIN_SAMPLES)}, got {model!r}")
     dev = resolve_device(device)
@@ -143,6 +165,17 @@ def ransac(src, dst, mask, config: RansacConfig = RansacConfig(),
         scores = torch.as_tensor(scores, device=dev).to(torch.float32)
         if tuple(scores.shape) != (iters, n):
             raise ValueError(f"scores: expected shape {(iters, n)}, got {tuple(scores.shape)}")
+    return src, dst, mask, scores
+
+
+@f32
+def ransac_plain(src, dst, mask, config: RansacConfig = RansacConfig(),
+                 model: str = "homography", scores=None, refit: bool = True,
+                 device=None) -> RansacResult:
+    """:func:`ransac` in plain PyTorch on any device: the kernels'
+    counterpart, which CPU tensors and the other models take."""
+    src, dst, mask, scores = _inputs(src, dst, mask, config, model, scores, device)
+    dev, (iters, n) = src.device, scores.shape
     k = MIN_SAMPLES[model]
     err_fn = _error_fn(model)
     fitter = _FITTERS[model]

@@ -13,7 +13,7 @@ machine may have no ``nvcc``.  ``build_all`` starts one ``nvcc`` per source
 at once and waits for all of them.
 
 ``LAUNCHES`` counts the launches of the system's kernels (K1-K3, the
-two-view polish and the small-matrix solvers) by kernel name,
+two-view polish, the small-matrix solvers and RANSAC's two) by kernel name,
 ``K4_LAUNCHES`` those of K4's fold variants, which run only in their
 microbenchmark.  A wrapper adds one right after it launches its kernel,
 and nowhere else, so a run that resets the counts and reads them
@@ -43,17 +43,19 @@ COMMON_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # windows.cu (K2) keeps every multiply and add separately rounded (no FMA
 # contraction): it floors quotients into bins, so it reproduces its plain
 # PyTorch version's fp32 arithmetic op for op.  descriptors.cu (K3),
-# match.cu (K1), fold_micro.cu (K4), refine.cu (the two-view polish) and
-# linalg.cu (the small-matrix solvers) compute continuous functions and let
-# nvcc contract.  See the note at the top of each source.
+# match.cu (K1), fold_micro.cu (K4), refine.cu (the two-view polish),
+# linalg.cu (the small-matrix solvers) and ransac.cu (RANSAC's fits) compute
+# continuous functions and let nvcc contract.  See the note at the top of
+# each source.
 EXTRA_FLAGS = {"windows": ["-fmad=false"], "descriptors": [], "match": [],
-               "fold_micro": [], "refine": [], "linalg": []}
+               "fold_micro": [], "refine": [], "linalg": [], "ransac": []}
 SOURCES = tuple(EXTRA_FLAGS)
 _INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 LAUNCHES = {"k1_match_top2": 0, "k1_match_top2_bf16": 0,
             "k2_orientation_hist": 0, "k3_descriptor": 0, "refine_gn": 0,
-            "svd3x3": 0, "smallest_eigvec": 0}
+            "svd3x3": 0, "smallest_eigvec": 0, "ransac_hypotheses": 0,
+            "ransac_refit": 0}
 # K4's fold variants, in the order of csrc/fold_micro.cu's enum.
 K4_FOLDS = ("gemm", "rowsum", "min1", "current", "pipe", "top2noi", "top2idx",
             "slotpack", "bf16")

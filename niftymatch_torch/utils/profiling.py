@@ -33,6 +33,13 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
+# The profiler's host and device clocks part by up to 31.6 ms on the H100
+# (PERF.md), and it keeps only the device activity whose time, read on the
+# host's clock, falls inside the session.  A session around one short call
+# can therefore come back with no kernel at all; one that waits this long on
+# the host before and after the call keeps them.
+CLOCK_PAD_S = 0.1
+
 # NVIDIA's H100 SXM data sheet, dense rates at the 700 W power limit.
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {"bf16_flops": 989e12, "hbm_gbps": 3.35e12},

@@ -1,8 +1,9 @@
 """How the port's kernels are built and how their bounds are counted, on
 the CPU: a library's name follows its source and the headers it includes,
 each source builds one library whose entry points are the ones the
-wrappers load, and ``chip_smoke.bound`` charges K1 at the tensor cores'
-rates."""
+wrappers load, the wrappers refuse what their kernels do not take before
+anything is built, CPU tensors never reach a kernel, and
+``chip_smoke.bound`` charges K1 at the tensor cores' rates."""
 
 import ast
 import importlib
@@ -15,9 +16,12 @@ import pytest
 import torch
 
 import chip_smoke
+from niftymatch_torch.config import RansacConfig
 from niftymatch_torch.geometry import linalg as glinalg
+from niftymatch_torch.geometry.ransac import ransac, ransac_plain
 from niftymatch_torch.kernels import _build
 from niftymatch_torch.kernels import linalg as klinalg
+from niftymatch_torch.kernels import ransac as kransac
 from niftymatch_torch.kernels import refine as krefine
 from niftymatch_torch.utils import profiling
 
@@ -78,14 +82,32 @@ def test_each_source_builds_one_library_with_the_entry_points_it_loads(name):
     assert exported and exported == _loaded_entry_points().get(name)
 
 
+def test_solvers_device_code_is_shared_through_the_header():
+    """``linalg.cu`` and ``ransac.cu`` both take the solvers' device code
+    from ``linalg.cuh``, which exports and launches nothing itself;
+    ``linalg.cu`` still exports its two entry points."""
+    header = (_build.CSRC_DIR / "linalg.cuh").read_text()
+    assert 'extern "C"' not in header and "__global__" not in header
+    for body in ("void rotate(", "void cswap_desc(", "void svd3x3(",
+                 "void smallest_eigvec("):
+        assert body in header, body
+    for name in ("linalg", "ransac"):
+        text = _build._source(name).read_text()
+        assert '#include "linalg.cuh"' in text
+        assert "void rotate(" not in text and "void cswap_desc(" not in text
+    assert _loaded_entry_points()["linalg"] == {"nm_svd3x3", "nm_smallest_eigvec"}
+
+
 def test_every_kernel_has_a_counter_and_flags():
     assert set(_build.EXTRA_FLAGS) == set(_build.SOURCES)
     assert _build.EXTRA_FLAGS["windows"] == ["-fmad=false"]
     assert set(_build.LAUNCHES) == {"k1_match_top2", "k1_match_top2_bf16",
                                     "k2_orientation_hist", "k3_descriptor",
-                                    "refine_gn", "svd3x3", "smallest_eigvec"}
+                                    "refine_gn", "svd3x3", "smallest_eigvec",
+                                    "ransac_hypotheses", "ransac_refit"}
     assert "refine" in _build.SOURCES and _build.EXTRA_FLAGS["refine"] == []
     assert "linalg" in _build.SOURCES and _build.EXTRA_FLAGS["linalg"] == []
+    assert "ransac" in _build.SOURCES and _build.EXTRA_FLAGS["ransac"] == []
     assert set(_build.K4_LAUNCHES) == {f"k4_fold_{f}" for f in _build.K4_FOLDS}
     _build.LAUNCHES["k3_descriptor"] = 3
     _build.K4_LAUNCHES["k4_fold_pipe"] = 2
@@ -158,6 +180,68 @@ def test_linalg_on_cpu_takes_the_plain_version(monkeypatch, tmp_path, solver):
                     want if solver == "svd3x3" else (want,)):
         assert torch.equal(g, w)
     assert counted == {"linalg.calls": 2}
+    assert not any(_build.LAUNCHES.values())
+
+
+def _ransac_inputs(n=16, iters=6):
+    rng = torch.Generator().manual_seed(0)
+    src = torch.rand(n, 2, generator=rng) * 100
+    dst = src + torch.tensor([3.0, -2.0])
+    scores = -torch.log(torch.empty(iters, n).exponential_(generator=rng))
+    return src, dst, torch.ones(n, dtype=torch.bool), scores
+
+
+@pytest.mark.parametrize("bad", ["cpu", "dtype", "scores_shape", "model"])
+def test_ransac_wrapper_refuses_bad_inputs_before_building(monkeypatch, bad):
+    """The RANSAC kernels' wrapper takes CUDA tensors of the documented
+    dtypes and shapes and the two models it fits, and refuses anything else,
+    with the reason, before it builds or launches."""
+    monkeypatch.setattr(_build, "load", _no_build)
+    monkeypatch.setattr(_build, "build_all", _no_build)
+    src, dst, mask, scores = _ransac_inputs()
+    model = "homography"
+    reason = "CUDA tensor"
+    if bad == "dtype":   # the device is checked with the dtype: fake a CUDA tensor
+        src = src.double()
+        monkeypatch.setattr(_build, "require_cuda", _dtype_only)
+        reason = "expected torch.float32"
+    if bad == "scores_shape":
+        monkeypatch.setattr(_build, "require_cuda", _dtype_only)
+        scores = scores[:, :-1]
+        reason = "scores: expected shape (6, 16)"
+    if bad == "model":
+        model, reason = "fundamental", "the RANSAC kernels fit ['essential', 'homography']"
+    with pytest.raises(ValueError, match=re.escape(reason)):
+        kransac.ransac(src, dst, mask, scores, 4.0, model)
+    assert _build.LAUNCHES["ransac_hypotheses"] == _build.LAUNCHES["ransac_refit"] == 0
+
+
+def _dtype_only(name, t, dtype, shape=None):
+    """``_build.require_cuda`` without its device check, so a CPU tensor
+    reaches the dtype and shape checks."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+@pytest.mark.parametrize("model", ["essential", "homography", "similarity"])
+def test_ransac_on_cpu_takes_the_plain_version(monkeypatch, tmp_path, model):
+    """CPU tensors never reach the RANSAC kernels: the router gives
+    ``ransac_plain``'s bits, counts every call in ``ransac.calls`` and none
+    in ``ransac.fused``, and builds and launches nothing."""
+    monkeypatch.setattr(_build, "load", _no_build)
+    monkeypatch.setattr(_build, "build_all", _no_build)
+    src, dst, mask, scores = _ransac_inputs(n=40, iters=8)
+    cfg = RansacConfig(iterations=8, inlier_threshold=1e-3 if model == "essential" else 4.0)
+    with profiling.trace(str(tmp_path)):
+        got = ransac(src, dst, mask, cfg, model=model, scores=scores, device="cpu")
+        ransac(src, dst, mask, cfg, model=model, scores=scores, device="cpu")
+        counted = profiling.counts()
+    want = ransac_plain(src, dst, mask, cfg, model=model, scores=scores, device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert counted.get("ransac.calls") == 2 and "ransac.fused" not in counted
     assert not any(_build.LAUNCHES.values())
 
 

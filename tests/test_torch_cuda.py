@@ -44,6 +44,7 @@ world 1 give the single-device solvers' bits.
 
 import contextlib
 import dataclasses
+import time
 from unittest import mock
 
 import numpy as np
@@ -58,6 +59,7 @@ from niftymatch_torch.kernels import windows as tw
 from niftymatch_torch.sift import keypoints_and_planes
 from torch_parity import (
     PLANAR_TRUTH,
+    assert_close_up_to_sign,
     assert_hist_close,
     cuda_device,
     dense_blob_scene,
@@ -74,9 +76,14 @@ KP = ("x", "y", "sigma", "octave", "level")
 
 pytestmark = pytest.mark.cuda
 LINALG = ("svd3x3", "smallest_eigvec")
-# The small-matrix solvers' launches in one ransac(): fits in the batch and the refit.
-RANSAC_LINALG = {"translation": (0, 0), "similarity": (0, 0), "homography": (0, 2),
-                 "fundamental": (2, 2), "essential": (4, 2), "essential5": (2, 1)}
+# The launches in one ransac() on the card: "essential" and "homography" run
+# as csrc/ransac.cu's two kernels; the other models' plain fits launch the
+# small-matrix solvers in the batch and the refit.
+RANSAC_LINALG = {"translation": {}, "similarity": {},
+                 "homography": {"ransac_hypotheses": 1, "ransac_refit": 1},
+                 "fundamental": {"svd3x3": 2, "smallest_eigvec": 2},
+                 "essential": {"ransac_hypotheses": 1, "ransac_refit": 1},
+                 "essential5": {"svd3x3": 2, "smallest_eigvec": 1}}
 
 
 def _front(dev):
@@ -170,7 +177,8 @@ def test_slice_on_card_matches_cpu():
     _build.reset_launches()
     ga, gb, gm = nt.make_pair_pipeline(pcfg, device=dev)(img_a, img_b)
     torch.cuda.synchronize()
-    expected = {k: int(k not in ("k1_match_top2_bf16", "refine_gn", *LINALG))
+    expected = {k: int(k not in ("k1_match_top2_bf16", "refine_gn", *LINALG,
+                                 "ransac_hypotheses", "ransac_refit"))
                 for k in _build.LAUNCHES}
     assert _build.LAUNCHES == expected, _build.LAUNCHES
     ca, cb, cm = nt.make_pair_pipeline(pcfg, device="cpu")(img_a, img_b)
@@ -459,8 +467,8 @@ def test_k1_k2_k3_rerun_bit_identical():
 @pytest.mark.parametrize("model", ["translation", "similarity", "homography",
                                    "fundamental", "essential", "essential5"])
 def test_ransac_on_card_matches_cpu(model):
-    """One injected draw on the card and on the CPU: the small-matrix
-    solvers launched once a fit on the card, the same transform
+    """One injected draw on the card and on the CPU: ``RANSAC_LINALG``'s
+    launches on the card, the same transform
     (corners within 1e-3 px for the 2-D models, entries within 1e-3 up to
     sign for the epipolar ones), and inlier flags that differ only at
     points whose error lies within 1e-4 tau of tau (CUDA divides by a
@@ -483,8 +491,7 @@ def test_ransac_on_card_matches_cpu(model):
     rg = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
     rc = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device="cpu")
     assert bool(rg.success) and bool(rc.success)
-    assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES},
-                               **dict(zip(LINALG, RANSAC_LINALG[model]))}
+    assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES}, **RANSAC_LINALG[model]}
     tg, tc = np_(rg.transform), np_(rc.transform)
     if model in PLANAR_TRUTH:
         corners = np.array([[0, 0, 1], [300, 0, 1], [0, 300, 1], [300, 300, 1]], float).T
@@ -534,8 +541,8 @@ def test_warp_and_blend_on_card_match_cpu():
 
 def test_mosaic_add_frame_launches_and_registers():
     """Each add_frame after the first launches K1 twice (both match
-    directions), K2 and K3 once, and ``smallest_eigvec`` twice (the
-    homography fits of RANSAC's batch and refit); shifted crops register."""
+    directions), K2 and K3 once, and the homography RANSAC's two kernels
+    once each; shifted crops register."""
     from niftymatch_torch.mosaic import MosaicBuilder, MosaicConfig
 
     dev = cuda_device()
@@ -550,7 +557,8 @@ def test_mosaic_add_frame_launches_and_registers():
         assert info["registered"], info
         assert _build.LAUNCHES == {"k1_match_top2": 2, "k1_match_top2_bf16": 0,
                                    "k2_orientation_hist": 1, "k3_descriptor": 1,
-                                   "refine_gn": 0, "svd3x3": 0, "smallest_eigvec": 2}
+                                   "refine_gn": 0, "svd3x3": 0, "smallest_eigvec": 0,
+                                   "ransac_hypotheses": 1, "ransac_refit": 1}
     h = mb.frame_to_canvas()
     np.testing.assert_allclose(h[:2, 2] - np.array([(320 - W) / 2, (240 - H) / 2]),
                                [28, 20], atol=1.0)
@@ -649,6 +657,7 @@ def test_linalg_one_kernel_a_call_no_sync(solver):
 
     from niftymatch_torch.geometry import linalg as gl
     from niftymatch_torch.utils import smoke_linalg
+    from niftymatch_torch.utils.profiling import CLOCK_PAD_S
 
     dev = cuda_device()
     A = smoke_linalg.svd_inputs(dev) if solver == "svd3x3" else smoke_linalg.eig9_inputs(dev)
@@ -662,8 +671,10 @@ def test_linalg_one_kernel_a_call_no_sync(solver):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(CLOCK_PAD_S)        # the profiler's clocks part by tens of ms
         call(A)
         torch.cuda.synchronize()
+        time.sleep(CLOCK_PAD_S)
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and f"{solver}_kernel" in kernels[0], kernels
@@ -674,9 +685,12 @@ def test_linalg_one_kernel_a_call_no_sync(solver):
 
 @pytest.mark.parametrize("model", ["essential", "homography"])
 def test_ransac_kernel_path_matches_plain_path(model):
-    """``ransac`` on the card with one injected draw, through the kernels
-    and through the plain solvers: the same success, inlier mask and
-    ``num_inliers`` (``test_ransac_on_card_matches_cpu``'s data)."""
+    """``ransac`` on the card with one injected draw, through the RANSAC
+    kernels and through ``ransac_plain`` on the card: the same success,
+    inlier mask and ``num_inliers`` (``test_ransac_on_card_matches_cpu``'s
+    data)."""
+    from niftymatch_torch.geometry.ransac import ransac_plain
+
     dev = cuda_device()
     rng = np.random.default_rng(8)
     n, iters = 512, 512
@@ -691,13 +705,166 @@ def test_ransac_kernel_path_matches_plain_path(model):
     mask = np.ones(n, bool)
     _build.reset_launches()
     got = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
-    with _plain_solvers():
-        want = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
     torch.cuda.synchronize()
-    assert tuple(_build.LAUNCHES[k] for k in LINALG) == RANSAC_LINALG[model]
+    assert _build.LAUNCHES == {**{k: 0 for k in _build.LAUNCHES}, **RANSAC_LINALG[model]}
+    want = ransac_plain(src, dst, mask, cfg, model=model, scores=scores, device=dev)
     assert bool(got.success) and bool(want.success)
     np.testing.assert_array_equal(np_(got.inliers), np_(want.inliers))
     assert int(got.num_inliers) == int(want.num_inliers)
+
+
+# --- RANSAC in two launches (csrc/ransac.cu) -----------------------------------
+
+
+def _ransac_case(model, n, iters, seed):
+    """``test_ransac_on_card_matches_cpu``'s data at N points with a third
+    outliers, one injected (I, N) draw, and the inlier threshold."""
+    rng = np.random.default_rng(seed)
+    if model in PLANAR_TRUTH:
+        src, dst = planar_correspondences(rng, model, n, n // 3)
+        tau = 4.0
+    else:
+        src, dst, _ = two_view(rng, n, outliers=n // 3, spread=True)
+        tau = 1e-5
+    scores = rng.gumbel(size=(iters, n)).astype(np.float32)
+    return src, dst, scores, tau
+
+
+def _assert_same_fit(model, got, want, src, dst, tau):
+    """``got`` and ``want`` (RansacResults) agree as ``utils/smoke_ransac``
+    says: the same success, corners of the 300 px frame within 1e-3 px
+    (homography) or entries within 1e-3 up to sign (essential), and inlier
+    flags that differ only where the error under ``want``'s transform lies
+    within 1e-4 tau of tau."""
+    from niftymatch_torch.utils import smoke_ransac
+
+    gaps = smoke_ransac.fit_gaps(model, got, want, src, dst, tau, extent=(300, 300))
+    smoke_ransac.check(model, got, want, gaps, tau)
+
+
+@pytest.mark.parametrize("iters,n", [(512, 1024), (1024, 2048), (512, 1000)])
+@pytest.mark.parametrize("model", ["essential", "homography"])
+def test_ransac_kernels_match_plain_at_the_callers_shapes(model, iters, n):
+    """The two launches against ``ransac_plain`` on the card with one
+    injected draw, at the SLAM's (I, N) = (512, 1,024), the mosaic's
+    (1,024, 2,048) and an N of no block's multiple: the same success, the
+    transform within ``test_ransac_on_card_matches_cpu``'s tolerances, inlier
+    flags that differ only within 1e-4 tau of tau, and the same bits on a
+    second call."""
+    from niftymatch_torch.geometry.ransac import ransac_plain
+
+    dev = cuda_device()
+    src, dst, scores, tau = _ransac_case(model, n, iters, seed=21 + n)
+    cfg = nt.RansacConfig(iterations=iters, inlier_threshold=tau)
+    mask = np.ones(n, bool)
+    mask[n // 2::97] = False                # a few masked-out points
+    got = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
+    again = nt.ransac(src, dst, mask, cfg, model=model, scores=scores, device=dev)
+    want = ransac_plain(src, dst, mask, cfg, model=model, scores=scores, device=dev)
+    assert bool(got.success)
+    _assert_same_fit(model, got, want, src, dst, tau)
+    assert not np_(got.inliers)[~mask].any()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def _kernel_parts(model, src, dst, mask, scores, tau, dev):
+    """The RANSAC kernels' two launches apart on CUDA copies of the inputs:
+    ``(models (I, 9), keys (I,), the winner with no refit)``."""
+    from niftymatch_torch.kernels import ransac as kr
+
+    s, d = (torch.as_tensor(a, device=dev).float().contiguous() for a in (src, dst))
+    m = torch.as_tensor(mask, device=dev).bool().contiguous()
+    sc = torch.as_tensor(scores, device=dev).float().contiguous()
+    models, keys = kr.hypotheses(s, d, m, sc, tau, model)
+    return models, keys, kr.refit_winner(s, d, m, models, keys, tau, model, refit=False)
+
+
+def _plain_winner(model, keys):
+    """The plain path's rule: E the first largest count, H the first
+    smallest MSAC score with a NaN smallest (``torch.argmax`` /
+    ``argmin``)."""
+    return int(torch.argmax(keys) if model == "essential" else torch.argmin(keys))
+
+
+@pytest.mark.parametrize("model", ["essential", "homography"])
+def test_ransac_kernels_edge_rules(model):
+    """The kernels' edge rules against ``ransac_plain`` on the card: fewer
+    valid points than a sample (no success, the plain ``num_inliers`` where
+    it is not rounding's choice);
+    exactly a sample's worth; a draw of exact ties, where the lowest columns
+    are taken; and degenerate samples (every point the same, so the fits
+    are garbage or NaN), where the winner follows ``torch.argmax`` /
+    ``argmin``'s first-index and NaN rules."""
+    from niftymatch_torch.geometry.ransac import MIN_SAMPLES, _FITTERS, ransac_plain
+
+    dev = cuda_device()
+    k = MIN_SAMPLES[model]
+    n, iters = 300, 64
+    src, dst, scores, tau = _ransac_case(model, n, iters, seed=5)
+    cfg = nt.RansacConfig(iterations=iters, inlier_threshold=tau)
+    inliers_at = n // 3                     # _ransac_case's first inlier
+
+    def both(mask, draw=scores, s=src, d=dst):
+        got = nt.ransac(s, d, mask, cfg, model=model, scores=draw, device=dev)
+        want = ransac_plain(s, d, mask, cfg, model=model, scores=draw, device=dev)
+        return got, want
+
+    # Fewer valid points than a sample: nothing is live.  With none, both
+    # flag nothing.  With k - 1 exact correspondences the homography's DLT
+    # null space maps each of them onto its match, so all k - 1 are inliers
+    # on both paths; the essential matrix's 8-point null space is 2-D there,
+    # so its inliers are rounding's choice (ransac_plain itself flags 1 of
+    # these 7 on the CPU and 2 on the card): bounded only.
+    for valid in (0, k - 1):
+        few = np.zeros(n, bool)
+        few[inliers_at:inliers_at + valid] = True
+        got, want = both(few)
+        assert not bool(got.success) and not bool(want.success)
+        assert not np_(got.inliers)[~few].any()
+        if valid == 0 or model == "homography":
+            assert int(got.num_inliers) == int(want.num_inliers) == valid
+        else:
+            assert int(got.num_inliers) <= valid
+
+    # Exactly a sample's worth of (well-spread) inliers: every hypothesis
+    # takes the same k points.
+    exact = np.zeros(n, bool)
+    exact[inliers_at:inliers_at + k] = True
+    got, want = both(exact)
+    assert bool(got.success) and bool(want.success)
+    assert int(got.num_inliers) == int(want.num_inliers) == k
+    np.testing.assert_array_equal(np_(got.inliers), np_(want.inliers))
+
+    # Exact ties: every score equal, so each row takes the k lowest valid
+    # columns, the well-spread inliers past the masked-out outliers.
+    mask = np.ones(n, bool)
+    mask[:inliers_at] = False
+    ties = np.zeros((iters, n), np.float32)
+    models, keys, _ = _kernel_parts(model, src, dst, mask, ties, tau, dev)
+    w = torch.zeros(n, device=dev)
+    w[inliers_at:inliers_at + k] = 1.0
+    s, d = (torch.as_tensor(a, device=dev) for a in (src, dst))
+    first = _FITTERS[model](s, d, w).reshape(9)
+    for row in (0, iters - 1):
+        assert_close_up_to_sign(np_(models[row]).astype(np.float64),
+                                np_(first).astype(np.float64), 1e-3)
+    assert torch.equal(models[0], models[-1])
+    got, want = both(mask, draw=ties)
+    _assert_same_fit(model, got, want, src, dst, tau)
+
+    # Degenerate samples: every point the same (coordinates whose sums are
+    # exact, so every sample centres to 0 and its scale is sqrt(2) / 1e-12).
+    same_s = np.tile(np.float32([[16.0, 32.0]]), (n, 1))
+    same_d = np.tile(np.float32([[48.0, 64.0]]), (n, 1))
+    full = np.ones(n, bool)
+    models, keys, (transform, flags, num, success) = _kernel_parts(
+        model, same_s, same_d, full, scores, tau, dev)
+    best = _plain_winner(model, keys)
+    assert torch.equal(transform.reshape(9).nan_to_num(), models[best].nan_to_num())
+    assert torch.equal(transform.isnan().reshape(9), models[best].isnan())
+    assert int(num) in (0, n) and int(flags.sum()) == int(num)
+    assert bool(success) == (int(num) >= k)
 
 
 def test_two_view_kernel_path_matches_plain_path():

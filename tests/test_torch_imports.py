@@ -38,6 +38,7 @@ MODULES = [
     "niftymatch_torch.kernels.fold",
     "niftymatch_torch.kernels.linalg",
     "niftymatch_torch.kernels.match",
+    "niftymatch_torch.kernels.ransac",
     "niftymatch_torch.kernels.refine",
     "niftymatch_torch.kernels.windows",
     "niftymatch_torch.mosaic",
@@ -86,6 +87,7 @@ MODULES = [
     "niftymatch_torch.utils.smoke_dataset",
     "niftymatch_torch.utils.smoke_fold",
     "niftymatch_torch.utils.smoke_linalg",
+    "niftymatch_torch.utils.smoke_ransac",
     "niftymatch_torch.utils.smoke_parallel",
     "niftymatch_torch.utils.smoke_sfm",
     "niftymatch_torch.utils.smoke_slam",

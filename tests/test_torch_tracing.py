@@ -146,7 +146,9 @@ def test_ba_counters_count_each_solve(sessions):
                        # RANSAC-E, 1 in each recover_pose and in the homography's
                        # decomposition; 8 smallest_eigvec: the two 8-point and two
                        # DLT homography fits, 4 triangulate_dlt), none fused on the CPU
-                       "linalg.calls": 15 * (8 - 1)}
+                       "linalg.calls": 15 * (8 - 1),
+                       # the E and H RANSACs of a tracked frame, plain on the CPU
+                       "ransac.calls": 2 * (8 - 1)}
     assert json.loads((logdir / "counters.json").read_text()) == counted
 
 
